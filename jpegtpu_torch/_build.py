@@ -22,11 +22,12 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "jpegtpu_torch")
 
-KERNEL_SOURCES = ("transform", "pack", "concat")
+KERNEL_SOURCES = ("transform", "pack", "merge", "concat")
 
 # Launches per kernel since the last reset, counted where each wrapper
 # launches its kernel (and nowhere else).
-LAUNCHES = {"transform": 0, "encode_blocks": 0, "merge_rows": 0,
+LAUNCHES = {"transform": 0, "transform_rgb_y": 0, "transform_rgb_chroma": 0,
+            "encode_blocks": 0, "merge_mcu": 0, "merge_rows": 0,
             "stream_concat": 0}
 
 _lock = threading.Lock()
@@ -123,6 +124,15 @@ def launch(source: str, kernel: str, argtypes, *args, device) -> None:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[kernel] += 1
+
+
+def query(source: str, fn: str, argtypes, *args) -> int:
+    """Call C entry `jt_<fn>` of csrc/<source>.cu, a host-side query that
+    launches nothing, and return its int result."""
+    f = getattr(_lib(source), f"jt_{fn}")
+    f.argtypes = list(argtypes)
+    f.restype = ctypes.c_int
+    return f(*args)
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype) -> None:

@@ -1,8 +1,8 @@
 """Encoder configuration (counterpart of `jpegtpu/config.py`).
 
 The same frozen dataclass, field for field, so a config means the same
-encode in both packages. The port serves the grayscale, single-scan
-subset; `check_supported` names the ROADMAP.md item for the rest.
+encode in both packages. The port serves single-scan encodes, gray and
+color; `check_supported` names the ROADMAP.md item for the rest.
 """
 from __future__ import annotations
 
@@ -68,12 +68,17 @@ class EncodeConfig:
     def luma_quant(self) -> np.ndarray:
         return tables.quality_scaled_table(tables.STD_LUMINANCE_QUANT, self.quality)
 
+    @property
+    def chroma_quant(self) -> np.ndarray:
+        return tables.quality_scaled_table(tables.STD_CHROMINANCE_QUANT, self.quality)
+
+    @property
+    def n_components(self) -> int:
+        return 1 if self.subsampling == "gray" else 3
+
     def check_supported(self) -> None:
         """Raise NotImplementedError for what this port does not serve yet,
         naming the ROADMAP.md item that will port it."""
-        if self.subsampling != "gray":
-            raise NotImplementedError(
-                "color encodes are not ported yet (ROADMAP.md M2)")
         if self.restart_interval:
             raise NotImplementedError(
                 "restart intervals are not ported yet (ROADMAP.md M3)")

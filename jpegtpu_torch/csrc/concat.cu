@@ -18,7 +18,11 @@
 //   the 128 bit counts; each thread funnel-shifts its block's words by
 //   offset & 31 and ORs them into a shared (cap + 1) * 128-word segment
 //   with shared atomicOr; the segment goes out in one coalesced pass.
-//   The TPU's one-hot MXU deposit and lane skew do not exist here.
+//   The TPU's one-hot MXU deposit and lane skew do not exist here. The
+//   segment lives in dynamic shared memory: above 48 KB (cap >= 96, which
+//   the color scan's per-MCU streams of E * cap words reach) the launch
+//   opts in to the device's larger limit first, and a segment past that
+//   limit is refused (jt_merge_rows_max_cap says where it lies).
 // - B: one thread block per segment; each thread builds one output word
 //   from two neighbouring segment words (funnel shift) and plain-stores it
 //   when all its 32 bits are this segment's, atomicOr's it into the zeroed
@@ -108,12 +112,32 @@ stream_concat_kernel(const unsigned* __restrict__ segs,
 
 }  // namespace
 
+// The largest cap whose segment fits the current device's opt-in shared
+// memory per block (beside the kernel's static scan array), or -1 if the
+// device cannot be queried.
+extern "C" int jt_merge_rows_max_cap() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return -1;
+  }
+  const int seg_bytes = optin - (int)(kLanes * sizeof(int));
+  return seg_bytes / (int)(kLanes * sizeof(unsigned)) - 1;
+}
+
 extern "C" int jt_merge_rows(const unsigned* words, const int* bits, int nb,
                              int cap, int nbh, int nbw, unsigned* segs,
                              int* seg_bits, cudaStream_t stream) {
   const int nseg = nbh * ((nbw + kLanes - 1) / kLanes);
   if (nseg > 0) {
     const size_t smem = (size_t)(cap + 1) * kLanes * sizeof(unsigned);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          merge_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
     merge_rows_kernel<<<nseg, kLanes, smem, stream>>>(words, bits, nb, cap,
                                                       nbw, segs, seg_bits);
   }

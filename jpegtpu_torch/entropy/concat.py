@@ -13,6 +13,7 @@ as int32 bit patterns (see entropy.pack).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,8 +33,9 @@ def merge_rows(words: torch.Tensor, bits: torch.Tensor, nbh: int, nbw: int):
 
     A block's bits count at most cap * 32 here: a block past that
     overflowed and the encode retries at a larger cap. On CUDA tensors
-    this launches csrc/concat.cu (merge_rows); on CPU tensors it runs
-    `merge_rows_plain`."""
+    this launches csrc/concat.cu (merge_rows), whose thread block holds a
+    segment of (cap + 1) * 512 bytes in shared memory; it raises if the
+    card cannot hold that. On CPU tensors it runs `merge_rows_plain`."""
     cap, nb = words.shape
     if nb != nbh * nbw or bits.shape != (nb,):
         raise ValueError(f"words {tuple(words.shape)} / bits "
@@ -42,6 +44,12 @@ def merge_rows(words: torch.Tensor, bits: torch.Tensor, nbh: int, nbw: int):
         return merge_rows_plain(words, bits, nbh, nbw)
     _build.require_cuda(words, "words", torch.int32)
     _build.require_cuda(bits, "bits", torch.int32)
+    limit = _merge_rows_max_cap(words.device)
+    if cap > limit:
+        raise ValueError(
+            f"merge_rows: a segment of cap {cap} needs {(cap + 1) * 512} B "
+            f"of shared memory per block; this card holds at most cap "
+            f"{limit}")
     nseg = _segments(nbh, nbw)
     segs = torch.empty((nseg, (cap + 1) * LANES), dtype=torch.int32,
                        device=words.device)
@@ -53,6 +61,12 @@ def merge_rows(words: torch.Tensor, bits: torch.Tensor, nbh: int, nbw: int):
         segs.data_ptr(), seg_bits.data_ptr(), device=words.device,
     )
     return segs, seg_bits
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_rows_max_cap(device: torch.device) -> int:
+    with torch.cuda.device(device):
+        return _build.query("concat", "merge_rows_max_cap", ())
 
 
 def merge_rows_plain(words: torch.Tensor, bits: torch.Tensor, nbh: int,

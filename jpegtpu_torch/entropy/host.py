@@ -1,13 +1,14 @@
 """Host entropy coder: RLE symbolization + Huffman bit packing (numpy).
 
-Counterpart of `jpegtpu/entropy/host.py` for one grayscale scan with one
-DC predictor chain; it serves `entropy="host"`. Semantics (T.81 and the
-reference's rle.c / huffman.c):
+Counterpart of `jpegtpu/entropy/host.py` for one scan without restart
+intervals, gray or color (a DC predictor chain per component, luminance
+or chrominance tables per block); it serves `entropy="host"`. Semantics
+(T.81 and the reference's rle.c / huffman.c):
   * magnitude category = bit length of |v|,
   * negative amplitudes encoded as v-1 masked to `size` bits,
   * ZRL 0xF0 per 16 zeros, symbol byte (run<<4)|size, EOB 0x00 when the
     block's tail is zero,
-  * DC is a running difference along the scan,
+  * DC is a running difference along the scan, one chain per component,
   * canonical Huffman codes, MSB-first bit packing, 0xFF -> 0xFF 00 byte
     stuffing, final partial byte padded with 1s or 0s.
 """
@@ -38,17 +39,29 @@ def amplitude_code(v: np.ndarray, size: np.ndarray) -> np.ndarray:
     return (raw & mask).astype(np.uint32)
 
 
-def symbolize(zz: np.ndarray):
+def dc_differences(dc: np.ndarray, comp_id: np.ndarray | None = None
+                   ) -> np.ndarray:
+    """Per-block DC difference along scan order; comp_id [nb] gives each
+    component its own predictor chain (T.81 F.1.1.5.1). None = one."""
+    dc = dc.astype(np.int32)
+    comp = np.zeros(dc.shape[0]) if comp_id is None else comp_id
+    diff = np.empty(dc.shape[0], dtype=np.int32)
+    for c in np.unique(comp):
+        m = comp == c
+        diff[m] = np.concatenate([dc[m][:1], np.diff(dc[m])])
+    return diff
+
+
+def symbolize(zz: np.ndarray, comp_id: np.ndarray | None = None):
     """[nb, 64] zigzag coefficients -> the scan's symbol stream in emission
     order: per block DC, then ascending AC with ZRLs before each escaped
     value, then EOB if the tail is zero. Returns (symbols u8, amplitudes
-    u32, amp_bits u8, is_dc bool)."""
+    u32, amp_bits u8, is_dc bool, block_of_symbol i64)."""
     zz = np.asarray(zz)
     nb = zz.shape[0]
     lanes = np.arange(64)
 
-    dc = zz[:, 0].astype(np.int32)
-    dc_diff = np.concatenate([dc[:1], np.diff(dc)])
+    dc_diff = dc_differences(zz[:, 0], comp_id)
     dc_size = magnitude_category(dc_diff)
     dc_amp = amplitude_code(dc_diff, dc_size)
 
@@ -91,11 +104,13 @@ def symbolize(zz: np.ndarray):
     is_dc = np.broadcast_to(
         (np.arange(65) == 0)[None, :, None], (nb, 65, 2)
     ).reshape(-1)
+    block = np.broadcast_to(np.arange(nb)[:, None, None], (nb, 65, 2))
     return (
         np.repeat(sym.reshape(-1), flat_cnt),
         np.repeat(amp.reshape(-1), flat_cnt),
         np.repeat(bits.reshape(-1), flat_cnt),
         np.repeat(is_dc, flat_cnt),
+        np.repeat(block.reshape(-1), flat_cnt),
     )
 
 
@@ -133,18 +148,26 @@ def stuff_bytes(raw: np.ndarray) -> bytes:
     return out.tobytes()
 
 
-def encode_scan(zz: np.ndarray, pad_ones: bool = True) -> bytes:
-    """Entropy-code one grayscale scan with the standard luminance tables:
-    [nb, 64] zigzag levels -> stuffed, padded entropy bytes."""
-    symbols, amplitudes, amp_bits, is_dc = symbolize(zz)
+def encode_scan(zz: np.ndarray, table_sel: np.ndarray | None = None,
+                comp_id: np.ndarray | None = None,
+                pad_ones: bool = True) -> bytes:
+    """Entropy-code one scan with the standard tables: [nb, 64] zigzag
+    levels in scan order -> stuffed, padded entropy bytes.
+
+    table_sel: [nb] 0 = luminance tables, 1 = chrominance (None: all 0).
+    comp_id: [nb] component of each block (see dc_differences)."""
+    symbols, amplitudes, amp_bits, is_dc, block = symbolize(zz, comp_id)
+    sel = (np.zeros(symbols.shape, np.int64) if table_sel is None
+           else np.asarray(table_sel, np.int64)[block])
     luts = tables.huffman_luts()
     codes = np.empty(symbols.shape, dtype=np.uint32)
     lens = np.empty(symbols.shape, dtype=np.uint8)
-    for flag, key in ((True, "dc_lum"), (False, "ac_lum")):
-        c, l = luts[key]
-        m = is_dc == flag
-        codes[m] = c[symbols[m]]
-        lens[m] = l[symbols[m]]
+    for flag, cls in ((True, "dc"), (False, "ac")):
+        for t, kind in ((0, "lum"), (1, "chrom")):
+            c, l = luts[f"{cls}_{kind}"]
+            m = (is_dc == flag) & (sel == t)
+            codes[m] = c[symbols[m]]
+            lens[m] = l[symbols[m]]
     # (huffman code || amplitude) per symbol, <= 27 bits
     total_vals = (codes.astype(np.uint64) << amp_bits.astype(np.uint64)) | amplitudes
     total_lens = lens.astype(np.int64) + amp_bits

@@ -1,5 +1,6 @@
-"""K1: pixels -> quantized zigzag levels (counterpart of
-`jpegtpu/ops/pallas_transform.py: transform_plane_raw`).
+"""K1, K2, K3: pixels -> quantized zigzag levels (counterpart of
+`jpegtpu/ops/pallas_transform.py`: transform_plane_raw, and the fused
+color front ends transform_rgb_y_raw and transform_rgb_chroma_raw).
 
 Per 8x8 block: level shift by -128, separable DCT F = T X T^T, division by
 the quantization table with round half away from zero, zigzag order.
@@ -15,6 +16,10 @@ Levels come out coefficient-major, `[64, nb]` int32 with blocks in raster
 order, the layout K4 reads with coalesced loads; `.T` is jpegtpu's
 `[nb, 64]` contract. The TPU kernel's [G, 64, 8, 128] tiling, its
 block-diagonal bases and its 64x1024 padding exist only for the TPU.
+
+K2 converts interleaved RGB [PH, PW, 3] to luma and K3 to subsampled Cb
+and Cr (ops.color's arithmetic) inside the same kernel; their plain
+versions convert first and then run K1's plain version.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import ctypes
 import torch
 
 from .. import _build, tables
-from .color import level_shift
+from . import color
+from .blocks import sampling_factors
 
 _ZIGZAG = torch.from_numpy(tables.ZIGZAG_ORDER.astype("int64"))
 _HALF = 1 << (tables.INT_FRAC - 1)
@@ -58,10 +64,106 @@ def transform(plane: torch.Tensor, state: tables.EncoderState,
     return out
 
 
+def _check_rgb(rgb: torch.Tensor, mh: int, mw: int) -> None:
+    if rgb.ndim != 3 or rgb.shape[2] != 3 or rgb.shape[0] % mh or (
+        rgb.shape[1] % mw
+    ):
+        raise ValueError(f"expected RGB [PH, PW, 3] with PH % {mh} == 0 and "
+                         f"PW % {mw} == 0, got {tuple(rgb.shape)}")
+
+
+def _kernel_inputs(rgb: torch.Tensor, quant: torch.Tensor,
+                   state: tables.EncoderState) -> torch.Tensor:
+    """Check K2's or K3's inputs; returns rgb 8-byte aligned."""
+    _build.require_cuda(rgb, "rgb", torch.uint8)
+    _build.require_cuda(quant, "quant", torch.int32)
+    _build.require_cuda(state.basis, "state.basis", torch.float32)
+    _build.require_cuda(state.basis_int, "state.basis_int", torch.int32)
+    # the kernels load 8 bytes at a time
+    return rgb.clone() if rgb.data_ptr() % 8 else rgb
+
+
+def transform_rgb_y(rgb: torch.Tensor, state: tables.EncoderState,
+                    int_mode: bool, ref_luma: bool = False) -> torch.Tensor:
+    """K2: interleaved RGB [PH, PW, 3] uint8 (multiples of 8) -> luma
+    levels [64, nb] int32 with the luminance table. Luma is the JFIF
+    16-bit weights, or with ref_luma the reference's (77R+150G+29B)>>8
+    (the TPU kernel's kind="y_ref").
+
+    On a CUDA tensor this launches csrc/transform.cu (transform_rgb_y); on
+    a CPU tensor it runs `transform_rgb_y_plain`."""
+    _check_rgb(rgb, 8, 8)
+    if rgb.device.type == "cpu":
+        return transform_rgb_y_plain(rgb, state, int_mode, ref_luma)
+    rgb = _kernel_inputs(rgb, state.quant, state)
+    ph, pw = rgb.shape[:2]
+    out = torch.empty((64, (ph // 8) * (pw // 8)), dtype=torch.int32,
+                      device=rgb.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch(
+        "transform", "transform_rgb_y", (P, I, I, P, P, P, I, I, P),
+        rgb.data_ptr(), ph, pw, state.quant.data_ptr(),
+        state.basis.data_ptr(), state.basis_int.data_ptr(), int(int_mode),
+        int(ref_luma), out.data_ptr(), device=rgb.device,
+    )
+    return out
+
+
+def transform_rgb_y_plain(rgb: torch.Tensor, state: tables.EncoderState,
+                          int_mode: bool, ref_luma: bool = False
+                          ) -> torch.Tensor:
+    """Plain PyTorch K2 (any device): convert, then K1's plain version."""
+    y = (color.rgb_to_y_reference(rgb) if ref_luma
+         else color.rgb_to_ycbcr(rgb)[..., 0])
+    return transform_plain(y, state, int_mode)
+
+
+def transform_rgb_chroma(rgb: torch.Tensor, state: tables.EncoderState,
+                         int_mode: bool, subsampling: str) -> torch.Tensor:
+    """K3: interleaved RGB [PH, PW, 3] uint8 (multiples of the MCU) ->
+    chroma levels [64, 2 * nc] int32 with the chrominance table: the nc
+    Cb blocks, then the nc Cr blocks, each in raster order over the
+    subsampled (MCU) grid.
+
+    On a CUDA tensor this launches csrc/transform.cu
+    (transform_rgb_chroma); on a CPU tensor it runs
+    `transform_rgb_chroma_plain`."""
+    fy, fx = sampling_factors(subsampling)
+    _check_rgb(rgb, 8 * fy, 8 * fx)
+    if rgb.device.type == "cpu":
+        return transform_rgb_chroma_plain(rgb, state, int_mode, subsampling)
+    rgb = _kernel_inputs(rgb, state.chroma_quant, state)
+    ph, pw = rgb.shape[:2]
+    nc = (ph // (8 * fy)) * (pw // (8 * fx))
+    out = torch.empty((64, 2 * nc), dtype=torch.int32, device=rgb.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch(
+        "transform", "transform_rgb_chroma", (P, I, I, I, I, P, P, P, I, P),
+        rgb.data_ptr(), ph, pw, fy, fx, state.chroma_quant.data_ptr(),
+        state.basis.data_ptr(), state.basis_int.data_ptr(), int(int_mode),
+        out.data_ptr(), device=rgb.device,
+    )
+    return out
+
+
+def transform_rgb_chroma_plain(rgb: torch.Tensor, state: tables.EncoderState,
+                               int_mode: bool, subsampling: str
+                               ) -> torch.Tensor:
+    """Plain PyTorch K3 (any device): convert, subsample, then K1's plain
+    version with the chrominance table."""
+    fy, fx = sampling_factors(subsampling)
+    ycc = color.rgb_to_ycbcr(rgb)
+    chroma = state._replace(quant=state.chroma_quant)
+    return torch.cat([
+        transform_plain(color.subsample(ycc[..., c], fy, fx), chroma, int_mode)
+        for c in (1, 2)
+    ], dim=1)
+
+
 def _blocks(plane: torch.Tensor) -> torch.Tensor:
     """[PH, PW] -> [nb, 8, 8] level-shifted int64 samples, raster order."""
     ph, pw = plane.shape
-    x = level_shift(plane).to(torch.int64)
+    x = color.level_shift(plane).to(torch.int64)
     return x.reshape(ph // 8, 8, pw // 8, 8).permute(0, 2, 1, 3).reshape(-1, 8, 8)
 
 

@@ -1,7 +1,7 @@
 """End-to-end grayscale encode (counterpart of `jpegtpu/pipeline.py`:
 grayscale_coefficients, encode_grayscale, _encode_segment_device,
 _gray_raw_front + _gray_encode_body_raw, capacity_ladder, record_cap,
-encode_file).
+encode_file), and the helpers the color path (color_pipeline) shares.
 
 The main path at the default EncodeConfig runs four kernels on the card:
 K1 transform (ops.transform) -> DC differences -> K4 symbolize + pack
@@ -54,6 +54,9 @@ def _levels(image: np.ndarray, config: EncodeConfig, dev: torch.device):
     """Host edge-pad -> device -> luma -> K1. Returns (levels [64, nb]
     int32, encoder state, nbh, nbw)."""
     config.check_supported()
+    if config.n_components != 1:
+        raise ValueError(f"subsampling={config.subsampling!r} is a color "
+                         "config: use encode_color")
     _check_image(image)
     padded = np.ascontiguousarray(pad_edge(image))
     x = torch.from_numpy(padded).to(dev)
@@ -105,22 +108,34 @@ def encode_levels(levels: torch.Tensor, huff: torch.Tensor, nbh: int,
     dcd = dc_differences(levels[0])
     for cap in capacity_ladder(config, key):
         words, bits = encode_blocks(levels, dcd, huff, cap)
-        overflow = (bits > cap * 32).any()
-        stream, total = concat_stream(words, bits, nbh, nbw)
-        stream, total = apply_tail_padding(stream, total, config.pad_ones)
-        overflowed, total_bits = torch.stack(
-            [overflow.to(torch.int64), total]
-        ).tolist()
-        if overflowed:
-            continue
-        record_cap(key, cap)
-        nwords = (total_bits + 31) // 32
-        words_np = stream[:nwords].cpu().numpy().view(np.uint32)
-        if native.available():
-            return native.words_to_stuffed(words_np, total_bits)
-        raw = np.frombuffer(words_np.astype(">u4").tobytes(), np.uint8)
-        return entropy_host.stuff_bytes(raw[: total_bits // 8])
+        scan = finish_scan(words, bits, bits > cap * 32, nbh, nbw,
+                           config.pad_ones)
+        if scan is not None:
+            record_cap(key, cap)
+            return scan
     raise RuntimeError("worst-case entropy capacity overflowed (bug)")
+
+
+def finish_scan(words: torch.Tensor, bits: torch.Tensor,
+                overflow: torch.Tensor, nbh: int, nbw: int,
+                pad_ones: bool) -> bytes | None:
+    """Streams [cap, nb] + bits [nb] of an nbh x nbw grid in scan order
+    -> K8 + K9 -> tail padding -> one readback of (any overflow, total
+    bits), then of the valid word prefix -> stuffed scan bytes; None if
+    `overflow` holds anywhere (the caller retries at the next rung)."""
+    stream, total = concat_stream(words, bits, nbh, nbw)
+    stream, total = apply_tail_padding(stream, total, pad_ones)
+    overflowed, total_bits = torch.stack(
+        [overflow.any().to(torch.int64), total]
+    ).tolist()
+    if overflowed:
+        return None
+    nwords = (total_bits + 31) // 32
+    words_np = stream[:nwords].cpu().numpy().view(np.uint32)
+    if native.available():
+        return native.words_to_stuffed(words_np, total_bits)
+    raw = np.frombuffer(words_np.astype(">u4").tobytes(), np.uint8)
+    return entropy_host.stuff_bytes(raw[: total_bits // 8])
 
 
 _CAP_HISTORY_MAX = 4096
@@ -178,10 +193,17 @@ def record_cap(key, cap: int) -> None:
 
 def encode_file(input_path: str, output_path: str,
                 config: EncodeConfig | None = None, *, device=None) -> int:
-    """BMP in, grayscale JPEG out. Returns the number of bytes written."""
+    """BMP in, JPEG out: grayscale, or color for a color config. Returns
+    the number of bytes written."""
     config = config or EncodeConfig()
     config.check_supported()
-    data = encode_grayscale(bmp.read(input_path), config, device=device)
+    rgb = bmp.read(input_path)
+    if config.n_components == 1:
+        data = encode_grayscale(rgb, config, device=device)
+    else:
+        from .color_pipeline import encode_color
+
+        data = encode_color(rgb, config, device=device)
     with open(output_path, "wb") as f:
         f.write(data)
     return len(data)

@@ -1,7 +1,7 @@
 """JPEG constant tables, canonical Huffman codes, and the encoder state.
 
-Counterpart of `jpegtpu/tables.py` (the luminance subset this slice
-encodes with): the ITU-T T.81 Annex-K quantization and Huffman tables,
+Counterpart of `jpegtpu/tables.py` (its standard tables): the ITU-T T.81
+Annex-K luminance and chrominance quantization and Huffman tables,
 IJG quality scaling, the zigzag permutation, and both DCT bases. These
 are numpy, as in jpegtpu; `encoder_state_from_numpy` turns them into the
 small device tensors the port's kernels read.
@@ -28,6 +28,20 @@ STD_LUMINANCE_QUANT = np.array(
         24, 35, 55, 64, 81, 104, 113, 92,
         49, 64, 78, 87, 103, 121, 120, 101,
         72, 92, 95, 98, 112, 100, 103, 99,
+    ],
+    dtype=np.uint8,
+).reshape(8, 8)
+
+STD_CHROMINANCE_QUANT = np.array(
+    [
+        17, 18, 24, 47, 99, 99, 99, 99,
+        18, 21, 26, 66, 99, 99, 99, 99,
+        24, 26, 56, 99, 99, 99, 99, 99,
+        47, 66, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
     ],
     dtype=np.uint8,
 ).reshape(8, 8)
@@ -120,6 +134,41 @@ STD_AC_LUMINANCE_VALUES = np.array(
     dtype=np.uint8,
 )
 
+STD_DC_CHROMINANCE_BITS = np.array(
+    [0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], dtype=np.uint8
+)
+STD_DC_CHROMINANCE_VALUES = np.arange(12, dtype=np.uint8)
+
+STD_AC_CHROMINANCE_BITS = np.array(
+    [0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], dtype=np.uint8
+)
+STD_AC_CHROMINANCE_VALUES = np.array(
+    [
+        0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21,
+        0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
+        0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+        0xA1, 0xB1, 0xC1, 0x09, 0x23, 0x33, 0x52, 0xF0,
+        0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34,
+        0xE1, 0x25, 0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26,
+        0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38,
+        0x39, 0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
+        0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+        0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+        0x69, 0x6A, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78,
+        0x79, 0x7A, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+        0x88, 0x89, 0x8A, 0x92, 0x93, 0x94, 0x95, 0x96,
+        0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5,
+        0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4,
+        0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3,
+        0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2,
+        0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA,
+        0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9,
+        0xEA, 0xF2, 0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8,
+        0xF9, 0xFA,
+    ],
+    dtype=np.uint8,
+)
+
 
 def canonical_codes(bits: np.ndarray, values: np.ndarray, table_size: int = 256):
     """Canonical Huffman codes from a (bits, values) spec (T.81 Annex C).
@@ -144,11 +193,16 @@ def canonical_codes(bits: np.ndarray, values: np.ndarray, table_size: int = 256)
 
 @functools.lru_cache(maxsize=None)
 def huffman_luts():
-    """The two standard luminance tables as dense (codes, lengths) LUTs,
-    keyed 'dc_lum' and 'ac_lum' (jpegtpu.tables.huffman_luts' keys)."""
+    """The four standard tables as dense (codes, lengths) LUTs, keyed
+    'dc_lum', 'ac_lum', 'dc_chrom', 'ac_chrom' (jpegtpu.tables.huffman_luts'
+    keys)."""
     return {
         "dc_lum": canonical_codes(STD_DC_LUMINANCE_BITS, STD_DC_LUMINANCE_VALUES),
         "ac_lum": canonical_codes(STD_AC_LUMINANCE_BITS, STD_AC_LUMINANCE_VALUES),
+        "dc_chrom": canonical_codes(STD_DC_CHROMINANCE_BITS,
+                                    STD_DC_CHROMINANCE_VALUES),
+        "ac_chrom": canonical_codes(STD_AC_CHROMINANCE_BITS,
+                                    STD_AC_CHROMINANCE_VALUES),
     }
 
 
@@ -215,16 +269,20 @@ HUFF_SIZE = 192
 class EncoderState(NamedTuple):
     """What the kernels read, on one device.
 
-    quant: int32 [64] quantization table, raster order.
+    quant: int32 [64] luminance quantization table, raster order.
     basis: float32 [8, 8] DCT basis (float mode).
     basis_int: int32 [8, 8] = round(basis * 2^11) (int32 mode).
-    huff: int32 [192] packed Huffman table of one class (layout above).
+    huff: int32 [192] packed luminance Huffman table (layout above).
+    chroma_quant: int32 [64] chrominance quantization table.
+    huff_chroma: int32 [192] packed chrominance Huffman table.
     """
 
     quant: torch.Tensor
     basis: torch.Tensor
     basis_int: torch.Tensor
     huff: torch.Tensor
+    chroma_quant: torch.Tensor
+    huff_chroma: torch.Tensor
 
 
 def pack_huffman_table(dc_codes, dc_lens, ac_codes, ac_lens) -> np.ndarray:
@@ -243,36 +301,40 @@ def pack_huffman_table(dc_codes, dc_lens, ac_codes, ac_lens) -> np.ndarray:
     return out
 
 
-def encoder_state_from_numpy(luma_quant, dct_basis, dc_codes, dc_lens,
-                             ac_codes, ac_lens, device) -> EncoderState:
+def encoder_state_from_numpy(luma_quant, chroma_quant, dct_basis, luts,
+                             device) -> EncoderState:
     """numpy tables (as jpegtpu computes them) -> the kernels' tensors.
 
-    luma_quant: [8, 8] or [64] quantization table, raster order.
+    luma_quant, chroma_quant: [8, 8] or [64] quantization tables, raster
+      order.
     dct_basis: float [8, 8] basis; the int32-mode basis is derived from
       it as round(basis * 2^11), in float64.
-    dc_codes/dc_lens: the DC class LUT (>= 12 entries, by size category);
-      ac_codes/ac_lens: the AC class LUT (256 entries, by symbol byte).
+    luts: {'dc_lum', 'ac_lum', 'dc_chrom', 'ac_chrom'} -> (codes, lengths):
+      a DC class LUT has >= 12 entries (by size category), an AC class
+      LUT 256 (by symbol byte).
     """
     def dense(a, dtype):
         # torch.tensor keeps a numpy array's strides; the kernels read
         # row-major memory (the reference basis is a transposed view)
         return torch.tensor(np.ascontiguousarray(a, dtype), device=device)
 
+    def huff(kind):
+        return dense(pack_huffman_table(*luts[f"dc_{kind}"],
+                                        *luts[f"ac_{kind}"]), np.int32)
+
     basis64 = np.asarray(dct_basis, np.float64).reshape(8, 8)
     return EncoderState(
         quant=dense(np.asarray(luma_quant).reshape(64), np.int32),
         basis=dense(basis64, np.float32),
         basis_int=dense(np.round(basis64 * (1 << INT_FRAC)), np.int32),
-        huff=dense(pack_huffman_table(dc_codes, dc_lens, ac_codes, ac_lens),
-                   np.int32),
+        huff=huff("lum"),
+        chroma_quant=dense(np.asarray(chroma_quant).reshape(64), np.int32),
+        huff_chroma=huff("chrom"),
     )
 
 
 def encoder_state(config, device) -> EncoderState:
     """The state for one EncodeConfig, from this module's own tables."""
-    luts = huffman_luts()
     basis = (dct_basis_reference if config.bitexact else dct_basis)(np.float64)
-    return encoder_state_from_numpy(
-        config.luma_quant, basis, *luts["dc_lum"], *luts["ac_lum"],
-        device=device,
-    )
+    return encoder_state_from_numpy(config.luma_quant, config.chroma_quant,
+                                    basis, huffman_luts(), device=device)

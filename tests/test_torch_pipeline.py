@@ -173,15 +173,17 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"subsampling": "420"}, "M2"),
+    ({"subsampling": "420", "restart_interval": 4}, "M3"),
     ({"restart_interval": 4}, "M3"),
     ({"optimize_huffman": True}, "M4"),
     ({"stuff": "device"}, "M10"),
 ])
 def test_unported_configs_name_their_roadmap_item(kw, item):
+    cfg = jpegtpu_torch.EncodeConfig(**kw)
+    encode = (jpegtpu_torch.encode_grayscale if cfg.n_components == 1
+              else jpegtpu_torch.encode_color)
     with pytest.raises(NotImplementedError, match=item):
-        jpegtpu_torch.encode_grayscale(
-            _gray(16, 16), jpegtpu_torch.EncodeConfig(**kw), device="cpu")
+        encode(_gray(16, 16), cfg, device="cpu")
 
 
 def test_rejects_bad_images():

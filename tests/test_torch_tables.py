@@ -51,28 +51,51 @@ def test_config_fields_match():
 
 @pytest.mark.parametrize("quality,bitexact", [(50, True), (85, False)])
 def test_encoder_state_from_jpegtpu_arrays(quality, bitexact):
-    """The state built from jpegtpu's own arrays equals the port's."""
+    """The state built from jpegtpu's own arrays (both table classes)
+    equals the port's."""
     jcfg = jpegtpu.EncodeConfig(quality=quality, bitexact=bitexact)
     basis = (jtables.dct_basis_reference if bitexact else jtables.dct_basis)(
         np.float64
     )
     dc_codes, dc_lens, ac_codes, ac_lens = jdevice._host_luts()
+    luts = {f"{cls}_{kind}": (codes[t], lens[t])
+            for t, kind in enumerate(("lum", "chrom"))
+            for cls, codes, lens in (("dc", dc_codes, dc_lens),
+                                     ("ac", ac_codes, ac_lens))}
     got = tables.encoder_state_from_numpy(
-        jcfg.luma_quant, basis, dc_codes[0], dc_lens[0], ac_codes[0],
-        ac_lens[0], device="cpu",
+        jcfg.luma_quant, jcfg.chroma_quant, basis, luts, device="cpu",
     )
     own = tables.encoder_state(
         jpegtpu_torch.EncodeConfig(quality=quality, bitexact=bitexact), "cpu"
     )
-    for a, b in zip(got, own):
+    for a, b in zip(got, own, strict=True):
         assert a.dtype == b.dtype and a.is_contiguous() and b.is_contiguous()
         assert torch.equal(a, b)
-    np.testing.assert_array_equal(
-        own.huff.numpy(),
-        pallas_pack.pack_runtime_tables(
-            dc_codes[0], dc_lens[0], ac_codes[0], ac_lens[0]
-        ),
-    )
+    for t, packed in enumerate((own.huff, own.huff_chroma)):
+        np.testing.assert_array_equal(
+            packed.numpy(),
+            pallas_pack.pack_runtime_tables(
+                dc_codes[t], dc_lens[t], ac_codes[t], ac_lens[t]
+            ),
+        )
+
+
+@pytest.mark.parametrize("quality", [1, 50, 85, 100])
+def test_chroma_quant_tables_match(quality):
+    cfg = jpegtpu_torch.EncodeConfig(quality=quality, subsampling="420")
+    jcfg = jpegtpu.EncodeConfig(quality=quality, subsampling="420")
+    np.testing.assert_array_equal(cfg.chroma_quant, jcfg.chroma_quant)
+    assert cfg.n_components == jcfg.n_components == 3
+    assert jpegtpu_torch.EncodeConfig().n_components == 1
+
+
+def test_chroma_spec_arrays_match():
+    for name in ("STD_CHROMINANCE_QUANT", "STD_DC_CHROMINANCE_BITS",
+                 "STD_DC_CHROMINANCE_VALUES", "STD_AC_CHROMINANCE_BITS",
+                 "STD_AC_CHROMINANCE_VALUES"):
+        np.testing.assert_array_equal(getattr(tables, name),
+                                      getattr(jtables, name))
+    assert sorted(tables.huffman_luts()) == sorted(jtables.huffman_luts())
 
 
 def test_import_loads_no_jax_or_jpegtpu():
