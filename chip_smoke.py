@@ -2,16 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from jpegtpu_torch/csrc and drives both
+Builds the hand-written kernels from jpegtpu_torch/csrc and drives the
 main paths at the reference's own image size, 3024 x 4032:
   gray   (encode_grayscale, EncodeConfig()): K1, K4, K8, K9;
   color  (encode_color, EncodeConfig(subsampling="420")): K2, K3, K4 with
-         both tables, K5, K8, K9.
+         both tables, K5, K8, K9;
+  gray restart (restart_interval=504, one block row per segment): K1, K4,
+         K12;
+  4:2:0 restart (restart_interval=252, one MCU row): K2, K3, K4, K5, K12;
+  gray 2-pass (optimize_huffman=True): K1, K4 with runtime tables, K8, K9;
+  4:2:0 restart 2-pass: K2, K3, K4 with runtime tables, K5, K12.
 For each path it holds every kernel against its plain PyTorch version at
-the path's shapes, encodes the image end to end through the entry point
-(launch counts reset just before and read just after), checks the bytes
-against the port's CPU path, climbs the capacity ladder, and times each
-kernel beside its bound. The color path also checks 4:2:2 and 4:4:4 at
+the path's shapes (K12 also at restart_interval 1 and with a ragged last
+segment), encodes the image end to end through the entry point (launch
+counts reset just before and read just after), checks the bytes against
+the port's CPU path, climbs the capacity ladder, and times each kernel
+beside its bound. The color path also checks 4:2:2 and 4:4:4 at
 1024 x 1536. Every timing line carries the card's name and power limit.
 The line before the last lists the kernels as JSON, one entry per kernel
 and path; the last line is the JSON {"ok": true, "device": {...}}. Any
@@ -20,6 +26,7 @@ JAX or of jpegtpu.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,9 +37,9 @@ import torch
 
 from jpegtpu_torch import (EncodeConfig, _build, color_pipeline, native,
                            pipeline, tables)
-from jpegtpu_torch.entropy import concat, merge, pack
+from jpegtpu_torch.entropy import concat, merge, pack, stitch
 from jpegtpu_torch.entropy.device import (MAX_WORDS_PER_BLOCK, dc_differences,
-                                          y_dc_differences)
+                                          symbol_histograms, y_dc_differences)
 from jpegtpu_torch.ops import transform
 
 H, W = 3024, 4032  # 12.19 MPix, the reference's image size
@@ -130,7 +137,7 @@ def stage_breakdown(img, cfg, reps: int = 5) -> dict:
         t = mark("d2h_overflow_total_and_words", t)
         scan = native.words_to_stuffed(words_np.view(np.uint32), total_bits)
         t = mark("host_stuff", t)
-        pipeline.jfif.assemble(w, h, cfg, scan)
+        pipeline.jfif.assemble(w, h, cfg, [scan])
         mark("host_assemble", t)
     return {k: float(np.median(v)) for k, v in stages.items()}
 
@@ -176,7 +183,7 @@ def color_stage_breakdown(img, cfg, reps: int = 5) -> dict:
         t = mark("d2h_overflow_total_and_words", t)
         scan = native.words_to_stuffed(words_np.view(np.uint32), total_bits)
         t = mark("host_stuff", t)
-        pipeline.jfif.assemble(w, h, cfg, scan)
+        pipeline.jfif.assemble(w, h, cfg, [scan])
         mark("host_assemble", t)
     return {k: float(np.median(v)) for k, v in stages.items()}
 
@@ -311,7 +318,7 @@ def color_phases(dev, say) -> list:
     float_close("color chroma levels vs CPU path", lc_g, lc_c)
     scan = color_pipeline.encode_color_levels(ly_g.cpu(), lc_g.cpu(),
                                               cpu_state, nmch, nmcw, cfg)
-    check(pipeline.jfif.assemble(W, H, cfg, scan) == jpg,
+    check(pipeline.jfif.assemble(W, H, cfg, [scan]) == jpg,
           "color float: card bytes != CPU entropy chain on the card's levels")
     cfg_int = EncodeConfig(subsampling="420", dct_dtype="int32")
     jpg_int = color_pipeline.encode_color(img, cfg_int)
@@ -420,6 +427,297 @@ def color_phases(dev, say) -> list:
     return kernels
 
 
+def restart_stage_breakdown(img, cfg, reps: int = 5) -> dict:
+    """Host-clock milliseconds of each stage of one gray restart encode
+    (restart_interval from cfg), each ended by a synchronize (medians)."""
+    stages = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        stages.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return time.perf_counter()
+
+    h, w = img.shape
+    cap = cfg.capacity_words_per_block
+    for _ in range(reps):
+        t = time.perf_counter()
+        plane = torch.from_numpy(img).cuda()
+        state = tables.encoder_state(cfg, "cuda")
+        t = mark("h2d_image_and_tables", t)
+        lv = transform.transform(plane, state, False)
+        t = mark("K1_transform", t)
+        dcd = dc_differences(lv[0], cfg.restart_interval)
+        t = mark("dc_differences_with_resets", t)
+        words, bits = pack.encode_blocks(lv, dcd, state.huff, cap)
+        t = mark("K4_pack", t)
+        stream, seg_tot, total = stitch.stitch_segments(
+            words, bits, cfg.restart_interval, cfg.pad_ones)
+        t = mark("K12_stitch_with_prefix_sums", t)
+        ov, total_bits = torch.stack(
+            [(bits > cap * 32).any().to(torch.int64), total]).tolist()
+        t = mark("d2h_overflow_and_total", t)
+        nw = (total_bits + 31) // 32
+        host = torch.cat([stream[:nw], seg_tot]).cpu().numpy()
+        t = mark("d2h_words_and_segment_totals", t)
+        scan = native.scan_from_words(host[:nw].view(np.uint32),
+                                      host[nw:].astype(np.int64) // 8)
+        t = mark("host_scan_from_words", t)
+        pipeline.jfif.assemble(w, h, cfg, [scan])
+        mark("host_assemble", t)
+    return {k: float(np.median(v)) for k, v in stages.items()}
+
+
+def two_pass_stage_breakdown(img, cfg, reps: int = 5) -> dict:
+    """Host-clock milliseconds of each stage of one gray 2-pass encode,
+    each ended by a synchronize (medians over reps)."""
+    stages = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        stages.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return time.perf_counter()
+
+    h, w = img.shape
+    nbh, nbw = h // 8, w // 8
+    cap = cfg.capacity_words_per_block
+    for _ in range(reps):
+        t = time.perf_counter()
+        plane = torch.from_numpy(img).cuda()
+        state = tables.encoder_state(cfg, "cuda")
+        t = mark("h2d_image_and_tables", t)
+        lv = transform.transform(plane, state, False)
+        t = mark("K1_transform", t)
+        dcd = dc_differences(lv[0])
+        t = mark("dc_differences", t)
+        counts = symbol_histograms(lv, dcd)
+        t = mark("symbol_histograms", t)
+        counts = counts.cpu()
+        t = mark("d2h_symbol_counts", t)
+        specs, (huff,) = pipeline.optimal_tables(counts, ("lum",), "cuda")
+        t = mark("host_table_build_and_h2d", t)
+        words, bits = pack.encode_blocks(lv, dcd, huff, cap)
+        t = mark("K4_pack_runtime_tables", t)
+        stream, total = concat.concat_stream(words, bits, nbh, nbw)
+        stream, total = concat.apply_tail_padding(stream, total, cfg.pad_ones)
+        t = mark("K8_K9_concat_and_tail_pad", t)
+        ov, total_bits = torch.stack(
+            [(bits > cap * 32).any().to(torch.int64), total]).tolist()
+        words_np = stream[: (total_bits + 31) // 32].cpu().numpy()
+        t = mark("d2h_overflow_total_and_words", t)
+        scan = native.words_to_stuffed(words_np.view(np.uint32), total_bits)
+        t = mark("host_stuff", t)
+        pipeline.jfif.assemble(w, h, cfg, [scan], huffman_specs=specs)
+        mark("host_assemble", t)
+    return {k: float(np.median(v)) for k, v in stages.items()}
+
+
+def restart_and_two_pass_phases(dev, say) -> list:
+    """Restart intervals (K12) and 2-pass optimal tables (K4 with runtime
+    tables), gray and 4:2:0: kernels against their plain versions, end to
+    end through the entry points in four configs, the capacity ladder,
+    stage breakdowns and the kernels' times. Returns the kernel entries."""
+    img, rgb_img = make_image(H, W), make_color_image(H, W)
+    nbh, nbw = H // 8, W // 8
+    nmch, nmcw = H // 16, W // 16
+    cap = 8
+    cfg_g = EncodeConfig(restart_interval=nbw)  # one block row: 504
+    cfg_c = EncodeConfig(subsampling="420", restart_interval=nmcw)  # 252
+    state = tables.encoder_state(cfg_c, dev)
+    lv = transform.transform(torch.from_numpy(img).to(dev), state, False)
+    rgb = torch.from_numpy(rgb_img).to(dev)
+    ly = transform.transform_rgb_y(rgb, state, False)
+    lc = transform.transform_rgb_chroma(rgb, state, False, "420")
+
+    def stitch_check(name, words, bits, seg_len, pad_ones=True):
+        got = stitch.stitch_segments(words, bits, seg_len, pad_ones)
+        want = stitch.stitch_segments_plain(words, bits, seg_len, pad_ones)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K12 {name} interval {seg_len}: kernel != plain")
+        return {"max_abs_err": int(np.abs(u32(got[0]) - u32(want[0])).max()),
+                "segments": int(got[1].shape[0]), "bits": int(got[2])}
+
+    # --- 11. K12 against its plain version, 3024 x 4032 ------------------
+    k12 = {}
+    for ri in (nbw, 1, 1000):  # a block row; every block; ragged tail
+        dcd = dc_differences(lv[0], ri)
+        words, bits = pack.encode_blocks(lv, dcd, state.huff, cap)
+        k12[f"gray_{ri}"] = stitch_check("gray", words, bits, ri)
+        if ri == nbw:
+            g_streams = (words, bits)
+            k12[f"gray_{ri}_pad_zeros"] = stitch_check("gray", words, bits,
+                                                       ri, False)
+    for ri in (nmcw, 1):  # an MCU row; every MCU
+        c = EncodeConfig(subsampling="420", restart_interval=ri)
+        dy, dc = color_pipeline.color_dc_differences(ly, lc, nmch, nmcw, c)
+        wy, by = pack.encode_blocks(ly, dy, state.huff, cap)
+        wc, bc = pack.encode_blocks(lc, dc, state.huff_chroma, cap)
+        mw, mb = merge.merge_mcu(wy, by, wc, bc, nmch, nmcw, "420")
+        k12[f"420_{ri}"] = stitch_check("4:2:0", mw, mb, ri)
+        if ri == nmcw:
+            c_streams = (mw, mb)
+    say("stitch_vs_plain", shape=[H, W], **k12)
+
+    # --- 12. K4 with the images' optimal tables against its plain version
+    dcd_g = dc_differences(lv[0])
+    specs_g, (huff_g,) = pipeline.optimal_tables(
+        symbol_histograms(lv, dcd_g), ("lum",), dev)
+    dcd_y, dcd_c = color_pipeline.color_dc_differences(ly, lc, nmch, nmcw,
+                                                       cfg_c)
+    specs_c, (huff_l, huff_c) = pipeline.optimal_tables(
+        symbol_histograms(ly, dcd_y, 0) + symbol_histograms(lc, dcd_c, 1),
+        ("lum", "chrom"), dev)
+    rt = {}
+    for name, lev, dcd, huff in (("gray", lv, dcd_g, huff_g),
+                                 ("420_luma", ly, dcd_y, huff_l),
+                                 ("420_chroma", lc, dcd_c, huff_c)):
+        rt[name] = equal_streams(
+            f"K4 runtime tables {name}",
+            pack.encode_blocks(lev, dcd, huff, cap),
+            pack.encode_blocks_plain(lev, dcd, huff, cap))
+    say("runtime_tables_vs_plain", shape=[H, W],
+        longest_code_bits={k: int(v[0].nonzero()[0].max()) + 1
+                           for k, v in {**specs_g, **specs_c}.items()},
+        **rt)
+
+    # --- 13. end to end through the entry points, four configs -----------
+    cfg_g2 = EncodeConfig(optimize_huffman=True)
+    cfg_c2 = EncodeConfig(subsampling="420", restart_interval=nmcw,
+                          optimize_huffman=True)
+    gray_k = ("transform", "encode_blocks")
+    color_k = ("transform_rgb_y", "transform_rgb_chroma", "encode_blocks",
+               "merge_mcu")
+    runs = [
+        ("gray_restart", cfg_g, img, gray_k + ("stitch_segments",)),
+        ("420_restart", cfg_c, rgb_img, color_k + ("stitch_segments",)),
+        ("gray_2pass", cfg_g2, img, gray_k + ("merge_rows", "stream_concat")),
+        ("420_restart_2pass", cfg_c2, rgb_img, color_k + ("stitch_segments",)),
+    ]
+    cpu = torch.device("cpu")
+    launches = {}
+    for name, cfg, im, path_kernels in runs:
+        gray = cfg.n_components == 1
+        encode = (pipeline.encode_grayscale if gray
+                  else color_pipeline.encode_color)
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        jpg = encode(im, cfg)
+        first_s = time.perf_counter() - t0
+        launches[name] = dict(_build.LAUNCHES)
+        check(all(launches[name][k] > 0 for k in path_kernels),
+              f"{name} skipped a kernel: {launches[name]}")
+        check(jpg[:2] == b"\xff\xd8" and jpg[-2:] == b"\xff\xd9",
+              f"{name}: output is not a JFIF stream")
+        # float mode: the bytes equal the CPU entropy chain (2-pass table
+        # build included) fed the card's levels
+        cpu_state = tables.encoder_state(cfg, cpu)
+        if gray:
+            scan, specs = pipeline.gray_scan(lv.cpu(), cpu_state, nbh, nbw,
+                                             cfg)
+        else:
+            scan, specs = color_pipeline.color_scan(
+                ly.cpu(), lc.cpu(), cpu_state, nmch, nmcw, cfg)
+        check(pipeline.jfif.assemble(W, H, cfg, [scan],
+                                     huffman_specs=specs) == jpg,
+              f"{name} float: card bytes != CPU entropy chain on the card's "
+              "levels")
+        cfg_int = dataclasses.replace(cfg, dct_dtype="int32")
+        jpg_int = encode(im, cfg_int)
+        check(jpg_int == encode(im, cfg_int, device="cpu"),
+              f"{name} int32: card bytes != CPU bytes")
+        e2e_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            encode(im, cfg)
+            e2e_s.append(time.perf_counter() - t0)
+        e2e_med = float(np.median(e2e_s))
+        say("end_to_end", path=name, shape=list(im.shape),
+            restart_interval=cfg.restart_interval,
+            optimize_huffman=cfg.optimize_huffman, bytes=len(jpg),
+            bytes_int32=len(jpg_int), first_call_s=first_s,
+            median_s=e2e_med, mpix_per_s=H * W / 1e6 / e2e_med,
+            launches=launches[name])
+
+    # --- 14. capacity ladder: gray restart, 4:2:0 restart 2-pass ---------
+    noise = np.random.default_rng(7).integers(
+        0, 256, (LADDER_H, LADDER_W, 3), dtype=np.uint8)
+    for name, cfg, im in (
+        ("gray_restart",
+         EncodeConfig(quality=100, dct_dtype="int32",
+                      restart_interval=LADDER_W // 8),
+         noise[..., 0]),
+        ("420_restart_2pass",
+         EncodeConfig(quality=100, dct_dtype="int32", subsampling="420",
+                      restart_interval=LADDER_W // 16,
+                      optimize_huffman=True),
+         noise),
+    ):
+        gray = cfg.n_components == 1
+        key = ((LADDER_H // 8, LADDER_W // 8, cfg, False) if gray
+               else (LADDER_H, LADDER_W, cfg, "color"))
+        encode = (pipeline.encode_grayscale if gray
+                  else color_pipeline.encode_color)
+        before = _build.LAUNCHES["stitch_segments"]
+        jpg_noise = encode(im, cfg)
+        rungs = _build.LAUNCHES["stitch_segments"] - before
+        top = pipeline._cap_history[key][0]
+        check(rungs == 3 and top == MAX_WORDS_PER_BLOCK,
+              f"{name} ladder: {rungs} K12 launches, settled at cap {top}")
+        check(jpg_noise == encode(im, cfg, device="cpu"),
+              f"{name} ladder: card bytes != CPU bytes")
+        say("capacity_ladder", path=name, shape=list(im.shape), rungs=rungs,
+            cap=top, bytes=len(jpg_noise))
+
+    # --- 15. stage breakdowns -------------------------------------------
+    say("stage_breakdown_ms", path="gray_restart", shape=[H, W],
+        **restart_stage_breakdown(img, cfg_g))
+    say("stage_breakdown_ms", path="gray_2pass", shape=[H, W],
+        **two_pass_stage_breakdown(img, cfg_g2))
+
+    # --- 16. timings and bounds -----------------------------------------
+    def k12_spec(words, bits, seg_len):
+        stream, seg_tot, total = stitch.stitch_segments(words, bits, seg_len)
+        valid = int(((bits.long() + 31) // 32).sum())
+        return ("stitch_segments", "jpegtpu_torch/csrc/stitch.cu",
+                "jpegtpu/entropy/pallas_concat.py:553",
+                lambda: stitch.stitch_segments(words, bits, seg_len),
+                lambda: stitch.stitch_segments_plain(words, bits, seg_len),
+                valid * 4 + bits.numel() * 4 + (int(total) + 31) // 32 * 4
+                + seg_tot.numel() * 4,
+                valid * 2)
+
+    def k4_spec(pairs):
+        nb = sum(lev.shape[1] for lev, _, _ in pairs)
+        return ("encode_blocks", "jpegtpu_torch/csrc/pack.cu",
+                "jpegtpu/entropy/pallas_pack.py:237",
+                lambda: [pack.encode_blocks(lev, d, h, cap)
+                         for lev, d, h in pairs],
+                lambda: [pack.encode_blocks_plain(lev, d, h, cap)
+                         for lev, d, h in pairs],
+                64 * nb * 4 + nb * 4 + len(pairs) * tables.HUFF_SIZE * 4
+                + cap * nb * 4 + nb * 4, 64 * nb)
+
+    kernels = []
+    for path, spec, result in (
+        ("gray_restart", k12_spec(*g_streams, cfg_g.restart_interval),
+         k12[f"gray_{nbw}"]),
+        ("420_restart", k12_spec(*c_streams, cfg_c.restart_interval),
+         k12[f"420_{nmcw}"]),
+        ("gray_2pass", k4_spec([(lv, dcd_g, huff_g)]), rt["gray"]),
+        ("420_restart_2pass",
+         k4_spec([(ly, dcd_y, huff_l), (lc, dcd_c, huff_c)]),
+         {"max_abs_err": max(rt["420_luma"]["max_abs_err"],
+                             rt["420_chroma"]["max_abs_err"])}),
+    ):
+        kernels += time_kernels([spec], launches[path], {spec[0]: result},
+                                path, [H, W], say)
+    dcd1 = dc_differences(lv[0], 1)
+    w1, b1 = pack.encode_blocks(lv, dcd1, state.huff, cap)
+    say("kernel_time", name="stitch_segments", path="gray_restart_1",
+        shape=[H, W], ms=time_ms(lambda: stitch.stitch_segments(w1, b1, 1)))
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -434,8 +732,12 @@ def main() -> int:
     print(card)
     dev = torch.device("cuda")
 
+    t_start = time.perf_counter()
+
     def say(phase: str, **kv) -> None:
-        print(json.dumps({"phase": phase, "card": card, **kv}), flush=True)
+        print(json.dumps({"phase": phase, "card": card, **kv,
+                          "at_s": time.perf_counter() - t_start}),
+              flush=True)
 
     # --- 1. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -509,7 +811,7 @@ def main() -> int:
     cpu_state = tables.encoder_state(cfg, "cpu")
     scan = pipeline.encode_levels(torch.from_numpy(zz_gpu.T.copy()),
                                   cpu_state.huff, nbh, nbw, cfg)
-    check(pipeline.jfif.assemble(W, H, cfg, scan) == jpg,
+    check(pipeline.jfif.assemble(W, H, cfg, [scan]) == jpg,
           "float: card bytes != CPU entropy chain on the card's levels")
     cfg_int = EncodeConfig(dct_dtype="int32")
     jpg_int = pipeline.encode_grayscale(img, cfg_int)
@@ -583,6 +885,7 @@ def main() -> int:
         ms=time_ms(lambda: transform.transform(plane, state, True)))
 
     kernels += color_phases(dev, say)
+    kernels += restart_and_two_pass_phases(dev, say)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

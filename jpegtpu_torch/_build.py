@@ -22,13 +22,13 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "jpegtpu_torch")
 
-KERNEL_SOURCES = ("transform", "pack", "merge", "concat")
+KERNEL_SOURCES = ("transform", "pack", "merge", "concat", "stitch")
 
 # Launches per kernel since the last reset, counted where each wrapper
 # launches its kernel (and nowhere else).
 LAUNCHES = {"transform": 0, "transform_rgb_y": 0, "transform_rgb_chroma": 0,
             "encode_blocks": 0, "merge_mcu": 0, "merge_rows": 0,
-            "stream_concat": 0}
+            "stream_concat": 0, "stitch_segments": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -1,7 +1,9 @@
 """Single-image color encode, 4:2:0, 4:2:2 and 4:4:4 (counterpart of
 `jpegtpu/color_pipeline.py`: encode_color, color_coefficients,
-_scan_layout, and the device body _fused_raw_planes +
-_color_merged_raw + _color_encode_body_raw).
+_scan_layout, the device body _fused_raw_planes + _color_merged_raw +
+_color_encode_body_raw, the restart body _color_restart_body_raw, and
+the 2-pass paths _color_stats_fn + _encode_color_optimized_device and
+_encode_color_optimized_restart_device).
 
 One MCU holds fy x fx luma blocks, one Cb and one Cr block (T.81 A.2.3);
 luma uses table 0, chroma table 1, and each component has its own DC
@@ -16,6 +18,13 @@ then the valid word prefix, and stuffs it. An overflow retries the
 entropy chain at the next rung of the capacity ladder; the transforms run
 once. Every rung runs the same kernels (jpegtpu leaves its Pallas chain
 at cap 53; K4 here takes any cap).
+
+With restart_interval (MCUs) every DC chain resets at each segment's
+first MCU and K12 stitches the MCU streams into byte-aligned segments in
+place of K8 + K9 (see pipeline). With optimize_huffman the levels and DC
+chains are computed once: symbol_histograms counts the luma blocks into
+the luminance classes and the chroma blocks into the chrominance ones,
+and K4 encodes with the four optimal tables (all four go in the header).
 """
 from __future__ import annotations
 
@@ -26,15 +35,15 @@ import torch
 
 from . import tables
 from .config import EncodeConfig
-from .entropy import host as entropy_host
-from .entropy.device import dc_differences, y_dc_differences
+from .entropy.device import (dc_differences, symbol_histograms,
+                             y_dc_differences)
 from .entropy.merge import mcu_luma_blocks, merge_mcu
 from .entropy.pack import encode_blocks
 from .io import jfif
-from .ops.blocks import mcu_dims, pad_edge, sampling_factors
+from .ops.blocks import mcu_dims, pad_edge, sampling_factors, slots_per_mcu
 from .ops.transform import transform_rgb_chroma, transform_rgb_y
-from .pipeline import (_check_image, capacity_ladder, finish_scan,
-                       record_cap, resolve_device)
+from .pipeline import (_check_image, capacity_ladder, finish_streams,
+                       host_scan, optimal_tables, record_cap, resolve_device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -106,35 +115,69 @@ def encode_color(image: np.ndarray, config: EncodeConfig | None = None,
     h, w = image.shape[:2]
     if config.entropy == "host":
         zz, table_sel, comp_id = color_coefficients(image, config, device=dev)
-        scan = entropy_host.encode_scan(zz, table_sel, comp_id,
-                                        pad_ones=config.pad_ones)
-    else:
-        ly, lc, state, (ph, pw) = component_levels(image, config, dev)
-        fy, fx = sampling_factors(config.subsampling)
-        scan = encode_color_levels(ly, lc, state, ph // (8 * fy),
-                                   pw // (8 * fx), config,
-                                   key=(ph, pw, config, "color"))
-    return jfif.assemble(w, h, config, scan)
+        segments, specs = host_scan(
+            zz, config, ("lum", "chrom"), table_sel.astype(np.int64),
+            comp_id, slots_per_mcu(config.subsampling))
+        return jfif.assemble(w, h, config, segments, huffman_specs=specs)
+    ly, lc, state, (ph, pw) = component_levels(image, config, dev)
+    fy, fx = sampling_factors(config.subsampling)
+    scan, specs = color_scan(ly, lc, state, ph // (8 * fy), pw // (8 * fx),
+                             config, key=(ph, pw, config, "color"))
+    return jfif.assemble(w, h, config, [scan], huffman_specs=specs)
+
+
+def color_scan(luma: torch.Tensor, chroma: torch.Tensor,
+               state: tables.EncoderState, nmch: int, nmcw: int,
+               config: EncodeConfig, key=None):
+    """The entropy half of a color device encode: luma levels [64, ny]
+    and chroma levels [64, 2 * nmcu] on a device -> (scan bytes, optimal
+    specs for the header or None). The DC differences are computed once;
+    with optimize_huffman pass 1 counts the luma blocks' symbols into the
+    luminance classes and the chroma blocks' into the chrominance ones,
+    and pass 2 encodes the same levels with the four optimal tables."""
+    dcd = color_dc_differences(luma, chroma, nmch, nmcw, config)
+    specs = None
+    if config.optimize_huffman:
+        counts = (symbol_histograms(luma, dcd[0], 0)
+                  + symbol_histograms(chroma, dcd[1], 1))
+        specs, (hl, hc) = optimal_tables(counts, ("lum", "chrom"),
+                                         luma.device)
+        state = state._replace(huff=hl, huff_chroma=hc)
+    return encode_color_levels(luma, chroma, state, nmch, nmcw, config, key,
+                               dcd), specs
+
+
+def color_dc_differences(luma: torch.Tensor, chroma: torch.Tensor,
+                         nmch: int, nmcw: int, config: EncodeConfig):
+    """(luma DC differences [ny] along the scan's luma chain, Cb then Cr
+    DC differences [2 * nmcu]), each chain reset at every restart
+    segment's first MCU."""
+    ss, ri = config.subsampling, config.restart_interval
+    fy, fx = sampling_factors(ss)
+    dcd_y = y_dc_differences(luma[0].reshape(fy * nmch, fx * nmcw), ss, ri)
+    dcd_c = dc_differences(chroma[0].reshape(2, -1), ri)
+    return dcd_y.reshape(-1), dcd_c.reshape(-1)
 
 
 def encode_color_levels(luma: torch.Tensor, chroma: torch.Tensor,
                         state: tables.EncoderState, nmch: int, nmcw: int,
-                        config: EncodeConfig, key=None) -> bytes:
+                        config: EncodeConfig, key=None, dcd=None) -> bytes:
     """The entropy half of the color device encode: luma levels [64, ny]
-    and chroma levels [64, 2 * nmcu] on a device -> stuffed scan bytes,
-    climbing the capacity ladder on overflow. `key` names the encode site
-    for capacity_ladder."""
+    and chroma levels [64, 2 * nmcu] on a device (and their DC
+    differences, computed here when None) -> stuffed scan bytes,
+    RST-delimited with restart_interval, climbing the capacity ladder on
+    overflow. The tables are state.huff and state.huff_chroma. `key`
+    names the encode site for capacity_ladder."""
     ss = config.subsampling
-    fy, fx = sampling_factors(ss)
-    dcd_y = y_dc_differences(luma[0].reshape(fy * nmch, fx * nmcw),
-                             ss).reshape(-1)
-    dcd_c = dc_differences(chroma[0].reshape(2, -1)).reshape(-1)
+    if dcd is None:
+        dcd = color_dc_differences(luma, chroma, nmch, nmcw, config)
+    dcd_y, dcd_c = dcd
     for cap in capacity_ladder(config, key):
         wy, by = encode_blocks(luma, dcd_y, state.huff, cap)
         wc, bc = encode_blocks(chroma, dcd_c, state.huff_chroma, cap)
         merged, mbits = merge_mcu(wy, by, wc, bc, nmch, nmcw, ss)
-        scan = finish_scan(merged, mbits, torch.cat([by, bc]) > cap * 32,
-                           nmch, nmcw, config.pad_ones)
+        scan = finish_streams(merged, mbits, torch.cat([by, bc]) > cap * 32,
+                              nmch, nmcw, config)
         if scan is not None:
             record_cap(key, cap)
             return scan

@@ -1,8 +1,9 @@
 """Encoder configuration (counterpart of `jpegtpu/config.py`).
 
 The same frozen dataclass, field for field, so a config means the same
-encode in both packages. The port serves single-scan encodes, gray and
-color; `check_supported` names the ROADMAP.md item for the rest.
+encode in both packages. The port serves single-image encodes, gray and
+color, with or without restart intervals and 2-pass optimal Huffman
+tables; `check_supported` names the ROADMAP.md item for the rest.
 """
 from __future__ import annotations
 
@@ -79,13 +80,6 @@ class EncodeConfig:
     def check_supported(self) -> None:
         """Raise NotImplementedError for what this port does not serve yet,
         naming the ROADMAP.md item that will port it."""
-        if self.restart_interval:
-            raise NotImplementedError(
-                "restart intervals are not ported yet (ROADMAP.md M3)")
-        if self.optimize_huffman:
-            raise NotImplementedError(
-                "2-pass optimal Huffman tables are not ported yet "
-                "(ROADMAP.md M4)")
         if self.stuff == "device":
             raise NotImplementedError(
                 'device byte stuffing (stuff="device") is not ported yet '

@@ -1,8 +1,19 @@
 // K4: fused symbolize + Huffman pack, one thread per 8x8 block.
 //
-// Replaces jpegtpu/entropy/pallas_pack.py: encode_blocks_pallas
-// (_encode_kernel with a static table class; the runtime-table
-// _encode_kernel_rt reads the same [192] table layout).
+// Replaces jpegtpu/entropy/pallas_pack.py: encode_blocks_pallas, both its
+// bodies: _encode_kernel (a static Annex-K table class) and
+// _encode_kernel_rt (runtime [192] tables, the 2-pass optimal codes).
+// This kernel reads its [192] table from memory either way, so one body
+// serves both.
+//
+// Optimal tables carry codes of up to 16 bits (T.81 C), all of which fit:
+// one put is at most a DC code and its amplitude, 16 + 11 = 27 bits, or
+// an AC code and its amplitude, 16 + 10 = 26 (ZRL and EOB 16), and a put
+// shifts by 64 - nacc - len >= 64 - 31 - 27 = 6 into the 64-bit
+// accumulator. A table entry is code << 6 | len < 2^22. The worst block
+// is 63 nonzero AC of 26 bits plus a 27-bit DC, 1665 bits (ZRLs and EOB
+// replace costlier symbols: entropy/device.py), within
+// MAX_BITS_PER_BLOCK = 1695, so the top rung's 53 words hold every block.
 //
 // Per block: the DC difference's size category and amplitude, then the AC
 // run-length walk (ZRL for every 16 zeros before a nonzero), each

@@ -1,14 +1,17 @@
 """Host entropy coder: RLE symbolization + Huffman bit packing (numpy).
 
-Counterpart of `jpegtpu/entropy/host.py` for one scan without restart
-intervals, gray or color (a DC predictor chain per component, luminance
-or chrominance tables per block); it serves `entropy="host"`. Semantics
-(T.81 and the reference's rle.c / huffman.c):
+Counterpart of `jpegtpu/entropy/host.py` for one scan, gray or color (a
+DC predictor chain per component, luminance or chrominance tables per
+block), with restart segments and custom (2-pass optimal) tables; it
+serves `entropy="host"` and finishes the device paths' restart scans
+when the native runtime is missing. Semantics (T.81 and the reference's
+rle.c / huffman.c):
   * magnitude category = bit length of |v|,
   * negative amplitudes encoded as v-1 masked to `size` bits,
   * ZRL 0xF0 per 16 zeros, symbol byte (run<<4)|size, EOB 0x00 when the
     block's tail is zero,
   * DC is a running difference along the scan, one chain per component,
+    reset to 0 at the start of each restart segment,
   * canonical Huffman codes, MSB-first bit packing, 0xFF -> 0xFF 00 byte
     stuffing, final partial byte padded with 1s or 0s.
 """
@@ -39,20 +42,28 @@ def amplitude_code(v: np.ndarray, size: np.ndarray) -> np.ndarray:
     return (raw & mask).astype(np.uint32)
 
 
-def dc_differences(dc: np.ndarray, comp_id: np.ndarray | None = None
-                   ) -> np.ndarray:
-    """Per-block DC difference along scan order; comp_id [nb] gives each
-    component its own predictor chain (T.81 F.1.1.5.1). None = one."""
+def dc_differences(dc: np.ndarray, comp_id: np.ndarray | None = None,
+                   segment_ids: np.ndarray | None = None) -> np.ndarray:
+    """Per-block DC difference along scan order. comp_id [nb] gives each
+    component its own predictor chain (T.81 F.1.1.5.1); segment_ids [nb]
+    resets every chain at the start of each restart segment (T.81
+    F.1.2.3). None = one component / one segment."""
+    nb = dc.shape[0]
+    comp = (np.zeros(nb, np.int64) if comp_id is None
+            else np.asarray(comp_id, np.int64))
+    seg = (np.zeros(nb, np.int64) if segment_ids is None
+           else np.asarray(segment_ids, np.int64))
+    chain = seg * 8 + comp  # one predictor chain per (segment, component)
     dc = dc.astype(np.int32)
-    comp = np.zeros(dc.shape[0]) if comp_id is None else comp_id
-    diff = np.empty(dc.shape[0], dtype=np.int32)
-    for c in np.unique(comp):
-        m = comp == c
+    diff = np.empty(nb, dtype=np.int32)
+    for c in np.unique(chain):
+        m = chain == c
         diff[m] = np.concatenate([dc[m][:1], np.diff(dc[m])])
     return diff
 
 
-def symbolize(zz: np.ndarray, comp_id: np.ndarray | None = None):
+def symbolize(zz: np.ndarray, comp_id: np.ndarray | None = None,
+              segment_ids: np.ndarray | None = None):
     """[nb, 64] zigzag coefficients -> the scan's symbol stream in emission
     order: per block DC, then ascending AC with ZRLs before each escaped
     value, then EOB if the tail is zero. Returns (symbols u8, amplitudes
@@ -61,7 +72,7 @@ def symbolize(zz: np.ndarray, comp_id: np.ndarray | None = None):
     nb = zz.shape[0]
     lanes = np.arange(64)
 
-    dc_diff = dc_differences(zz[:, 0], comp_id)
+    dc_diff = dc_differences(zz[:, 0], comp_id, segment_ids)
     dc_size = magnitude_category(dc_diff)
     dc_amp = amplitude_code(dc_diff, dc_size)
 
@@ -148,27 +159,75 @@ def stuff_bytes(raw: np.ndarray) -> bytes:
     return out.tobytes()
 
 
-def encode_scan(zz: np.ndarray, table_sel: np.ndarray | None = None,
-                comp_id: np.ndarray | None = None,
-                pad_ones: bool = True) -> bytes:
-    """Entropy-code one scan with the standard tables: [nb, 64] zigzag
-    levels in scan order -> stuffed, padded entropy bytes.
-
-    table_sel: [nb] 0 = luminance tables, 1 = chrominance (None: all 0).
-    comp_id: [nb] component of each block (see dc_differences)."""
-    symbols, amplitudes, amp_bits, is_dc, block = symbolize(zz, comp_id)
+def symbol_frequencies(zz: np.ndarray, table_sel: np.ndarray | None = None,
+                       comp_id: np.ndarray | None = None,
+                       segment_ids: np.ndarray | None = None) -> dict:
+    """Per-class 256-bin histograms of the scan's Huffman symbols (pass 1
+    of 2-pass optimal coding), keyed as tables.huffman_luts()."""
+    symbols, _amp, _bits, is_dc, block = symbolize(zz, comp_id, segment_ids)
     sel = (np.zeros(symbols.shape, np.int64) if table_sel is None
            else np.asarray(table_sel, np.int64)[block])
-    luts = tables.huffman_luts()
+    return {
+        f"{cls}_{kind}": np.bincount(
+            symbols[(is_dc == flag) & (sel == t)].astype(np.int64),
+            minlength=256)
+        for flag, cls in ((True, "dc"), (False, "ac"))
+        for t, kind in ((0, "lum"), (1, "chrom"))
+    }
+
+
+def encode_scan(zz: np.ndarray, table_sel: np.ndarray | None = None,
+                comp_id: np.ndarray | None = None,
+                segment_ids: np.ndarray | None = None,
+                pad_ones: bool = True, luts: dict | None = None) -> list:
+    """Entropy-code one scan: [nb, 64] zigzag levels in scan order -> the
+    stuffed entropy bytes of each restart segment (one segment without
+    segment_ids), each byte-aligned and padded; io.jfif.assemble joins
+    them with RSTn markers.
+
+    table_sel: [nb] 0 = luminance tables, 1 = chrominance (None: all 0).
+    comp_id / segment_ids: see dc_differences.
+    luts: custom (codes, lengths) LUTs keyed as tables.huffman_luts()
+      (2-pass optimal tables; a gray scan needs only the luminance
+      classes); None = the standard tables."""
+    symbols, amplitudes, amp_bits, is_dc, block = symbolize(
+        zz, comp_id, segment_ids)
+    sel = (np.zeros(symbols.shape, np.int64) if table_sel is None
+           else np.asarray(table_sel, np.int64)[block])
+    luts = luts or tables.huffman_luts()
     codes = np.empty(symbols.shape, dtype=np.uint32)
     lens = np.empty(symbols.shape, dtype=np.uint8)
     for flag, cls in ((True, "dc"), (False, "ac")):
         for t, kind in ((0, "lum"), (1, "chrom")):
-            c, l = luts[f"{cls}_{kind}"]
             m = (is_dc == flag) & (sel == t)
+            if not m.any():
+                continue
+            c, l = luts[f"{cls}_{kind}"]
             codes[m] = c[symbols[m]]
             lens[m] = l[symbols[m]]
     # (huffman code || amplitude) per symbol, <= 27 bits
     total_vals = (codes.astype(np.uint64) << amp_bits.astype(np.uint64)) | amplitudes
     total_lens = lens.astype(np.int64) + amp_bits
-    return pack_bits(total_vals, total_lens, pad_ones)
+    if segment_ids is None:
+        return [pack_bits(total_vals, total_lens, pad_ones)]
+    seg = np.asarray(segment_ids, np.int64)[block]
+    return [pack_bits(total_vals[seg == s], total_lens[seg == s], pad_ones)
+            for s in range(int(np.max(segment_ids)) + 1)]
+
+
+def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray) -> bytes:
+    """One word buffer of byte-aligned segments back to back (uint32,
+    bytes MSB-first) -> stuff(seg_0) RST0 stuff(seg_1) RST1 ... (markers
+    cycling RST0..RST7, none after the last). Native when the C++ runtime
+    builds, else numpy (the same bytes)."""
+    if native.available():
+        return native.scan_from_words(words, seg_bytes)
+    raw = np.frombuffer(np.asarray(words, np.uint32).astype(">u4").tobytes(),
+                        np.uint8)
+    ends = np.cumsum(seg_bytes)
+    parts = []
+    for j, (lo, hi) in enumerate(zip(ends - seg_bytes, ends)):
+        if j:
+            parts.append(bytes([0xFF, 0xD0 + ((j - 1) & 7)]))
+        parts.append(stuff_bytes(raw[lo:hi]))
+    return b"".join(parts)

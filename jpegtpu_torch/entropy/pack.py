@@ -1,9 +1,12 @@
 """K4: fused symbolize + Huffman pack (counterpart of
-`jpegtpu/entropy/pallas_pack.py: encode_blocks_pallas`, static table).
+`jpegtpu/entropy/pallas_pack.py: encode_blocks_pallas`, static and
+runtime tables).
 
-Levels [64, nb] int32 (coefficient-major, raster block order) and DC
-differences [nb] -> per-block MSB-first streams: words [cap, nb] and bit
-counts [nb]. Stream words travel in int32 tensors holding the uint32 bit
+Levels [64, nb] int32 (coefficient-major, raster block order), DC
+differences [nb] and a [192] table (tables.huffman_table: Annex K, or
+the 2-pass optimal codes of up to 16 bits, whose worst block fits 53
+words: csrc/pack.cu) -> per-block MSB-first streams: words [cap, nb] and
+bit counts [nb]. Stream words travel in int32 tensors holding the uint32 bit
 patterns (`.numpy().view(np.uint32)` reads them back); torch's uint32
 lacks shifts and scatters on the CPU. At most `cap` words are kept per
 block, words past its bits are zero, and the bit count is always the full

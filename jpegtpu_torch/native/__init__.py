@@ -1,9 +1,11 @@
-"""Native (C++) host runtime: byte stuffing and the BMP pixel pass.
+"""Native (C++) host runtime: byte stuffing, the restart-scan finish and
+the BMP pixel pass.
 
 Counterpart of `jpegtpu/native`, with its own copy of the C++ source.
 Compiled on demand with g++ into `build/jpegtpu_torch/` and loaded with
 ctypes. Every entry point has a numpy twin (entropy.host.stuff_bytes,
-io.bmp's slicing path); callers use it when g++ is missing.
+entropy.host.scan_from_words, io.bmp's slicing path); callers use it
+when g++ is missing.
 """
 from __future__ import annotations
 
@@ -46,6 +48,10 @@ def _load():
         lib.jt_words_to_stuffed.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ]
+        lib.jt_scan_from_words.restype = ctypes.c_size_t
+        lib.jt_scan_from_words.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ]
         lib.jt_bmp_to_rgb.restype = None
         lib.jt_bmp_to_rgb.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -81,6 +87,27 @@ def words_to_stuffed(words: np.ndarray, total_bits: int) -> bytes:
         raise ValueError(f"{words.size} words hold fewer than {nbytes} bytes")
     out = np.empty(2 * nbytes + 4, dtype=np.uint8)
     n = lib.jt_words_to_stuffed(words.ctypes.data, int(total_bits), out.ctypes.data)
+    return out[:n].tobytes()
+
+
+def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray) -> bytes:
+    """One stitched word buffer of byte-aligned segments -> the full
+    RST-delimited stuffed scan (stuff(seg_0) RST0 stuff(seg_1) RST1 ...,
+    no marker after the last) in one native pass. seg_bytes: per-segment
+    byte lengths."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native runtime unavailable")
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    seg_bytes = np.ascontiguousarray(seg_bytes, dtype=np.int64)
+    total = int(seg_bytes.sum())
+    if words.size * 4 < total:
+        raise ValueError(f"{words.size} words hold fewer than {total} bytes")
+    out = np.empty(2 * total + 2 * seg_bytes.size + 4, dtype=np.uint8)
+    n = lib.jt_scan_from_words(
+        words.ctypes.data, seg_bytes.ctypes.data, seg_bytes.size,
+        out.ctypes.data,
+    )
     return out[:n].tobytes()
 
 

@@ -1,9 +1,10 @@
 // Native host bitstream runtime for jpegtpu_torch (counterpart of
 // jpegtpu/native/bitpack.cpp, the entries this package uses).
 //
-// The card hands back a packed MSB-first word stream that needs only
-// 0xFF byte stuffing; that serial, byte-granular finish runs here at
-// memory speed, as does the BMP pixel pass.
+// The card hands back a packed MSB-first word stream (or one buffer of
+// byte-aligned restart segments) that needs only 0xFF byte stuffing and
+// RST markers; that serial, byte-granular finish runs here at memory
+// speed, as does the BMP pixel pass.
 //
 // Build: g++ -O3 -shared -fPIC (driven by jpegtpu_torch/native/__init__.py).
 
@@ -64,6 +65,58 @@ size_t jt_words_to_stuffed(const uint32_t* words, int64_t total_bits,
     uint8_t b = static_cast<uint8_t>(words[bi / 4] >> (24 - 8 * (bi % 4)));
     out[o++] = b;
     if (b == 0xFF) out[o++] = 0;
+  }
+  return o;
+}
+
+// Full restart-marker scan from ONE stitched word buffer: the buffer holds
+// byte-aligned segments back to back (entropy/stitch.py); emit
+// stuff(seg_0) RST0 stuff(seg_1) RST1 ... in one pass. The marker after
+// segment s is FFD0 + (s & 7); none follows the last segment.
+// seg_bytes[s] = segment byte length. Words are host-order uint32, bytes
+// MSB-first (as jt_words_to_stuffed). `out` must hold
+// 2 * sum(seg_bytes) + 2 * n_seg. Returns the output length.
+size_t jt_scan_from_words(const uint32_t* words, const int64_t* seg_bytes,
+                          int64_t n_seg, uint8_t* out) {
+  size_t o = 0;
+  int64_t b = 0;  // global byte cursor into the word buffer
+  for (int64_t s = 0; s < n_seg; ++s) {
+    int64_t end = b + seg_bytes[s];
+    // head: bytes until the cursor is word-aligned
+    while (b < end && (b & 3)) {
+      uint8_t v = static_cast<uint8_t>(words[b >> 2] >> (24 - 8 * (b & 3)));
+      out[o++] = v;
+      if (v == 0xFF) out[o++] = 0;
+      ++b;
+    }
+    // body: full words
+    while (b + 4 <= end) {
+      uint32_t w = words[b >> 2];
+      uint8_t b0 = static_cast<uint8_t>(w >> 24);
+      uint8_t b1 = static_cast<uint8_t>(w >> 16);
+      uint8_t b2 = static_cast<uint8_t>(w >> 8);
+      uint8_t b3 = static_cast<uint8_t>(w);
+      out[o++] = b0;
+      if (b0 == 0xFF) out[o++] = 0;
+      out[o++] = b1;
+      if (b1 == 0xFF) out[o++] = 0;
+      out[o++] = b2;
+      if (b2 == 0xFF) out[o++] = 0;
+      out[o++] = b3;
+      if (b3 == 0xFF) out[o++] = 0;
+      b += 4;
+    }
+    // tail
+    while (b < end) {
+      uint8_t v = static_cast<uint8_t>(words[b >> 2] >> (24 - 8 * (b & 3)));
+      out[o++] = v;
+      if (v == 0xFF) out[o++] = 0;
+      ++b;
+    }
+    if (s + 1 < n_seg) {
+      out[o++] = 0xFF;
+      out[o++] = static_cast<uint8_t>(0xD0 + (s & 7));
+    }
   }
   return o;
 }

@@ -1,7 +1,11 @@
 """End-to-end grayscale encode (counterpart of `jpegtpu/pipeline.py`:
 grayscale_coefficients, encode_grayscale, _encode_segment_device,
-_gray_raw_front + _gray_encode_body_raw, capacity_ladder, record_cap,
-encode_file), and the helpers the color path (color_pipeline) shares.
+_gray_raw_front + _gray_encode_body_raw, the restart path
+_encode_restart_segments_device + _gray_restart_body_raw + fetch_stitched
++ scan_from_stitched, the 2-pass paths _encode_grayscale_optimized_device
+and _encode_grayscale_optimized_restart_device, capacity_ladder,
+record_cap, encode_file), and the helpers the color path (color_pipeline)
+shares.
 
 The main path at the default EncodeConfig runs four kernels on the card:
 K1 transform (ops.transform) -> DC differences -> K4 symbolize + pack
@@ -10,6 +14,17 @@ tail padding. The host reads (overflow, total bits), then the valid word
 prefix, and stuffs it with the native runtime. A block that overflows
 the per-block capacity retries the entropy chain at the next rung of the
 capacity ladder (8 -> 16 -> 53 words); the transform runs once.
+
+With restart_interval the DC chain resets at every segment and K12
+(entropy.stitch) takes the place of K8 + K9: it lays the byte-aligned,
+padded segments back to back in one buffer, and the host stuffs them
+and puts RSTn between in one pass (entropy.host.scan_from_words).
+
+With optimize_huffman the levels and DC differences are computed once
+and stay on the card: symbol_histograms counts their symbols, the host
+reads the counts (~3 KB), builds package-merge tables, and K4 encodes
+the same levels with them as runtime tables, at every rung (the TPU
+reference leaves for its host coder past cap 16).
 """
 from __future__ import annotations
 
@@ -20,8 +35,10 @@ from . import native, tables
 from .config import EncodeConfig
 from .entropy import host as entropy_host
 from .entropy.concat import apply_tail_padding, concat_stream
-from .entropy.device import MAX_WORDS_PER_BLOCK, dc_differences
+from .entropy.device import (MAX_WORDS_PER_BLOCK, assemble_histograms,
+                             dc_differences, symbol_histograms)
 from .entropy.pack import encode_blocks
+from .entropy.stitch import stitch_segments
 from .io import bmp, jfif
 from .ops import color
 from .ops.blocks import pad_edge
@@ -86,34 +103,97 @@ def encode_grayscale(image: np.ndarray, config: EncodeConfig | None = None,
     h, w = image.shape[:2]
     if config.entropy == "host":
         zz = grayscale_coefficients(image, config, device=dev)
-        scan = entropy_host.encode_scan(zz, pad_ones=config.pad_ones)
-    else:
-        scan = _encode_segment_device(image, config, dev)
-    return jfif.assemble(w, h, config, scan)
-
-
-def _encode_segment_device(image: np.ndarray, config: EncodeConfig,
-                           dev: torch.device) -> bytes:
-    """Single-segment device encode with capacity-overflow retry."""
+        segments, specs = host_scan(zz, config, ("lum",))
+        return jfif.assemble(w, h, config, segments, huffman_specs=specs)
     levels, state, nbh, nbw = _levels(image, config, dev)
-    return encode_levels(levels, state.huff, nbh, nbw, config,
-                         key=(nbh, nbw, config, image.ndim == 3))
+    scan, specs = gray_scan(levels, state, nbh, nbw, config,
+                            key=(nbh, nbw, config, image.ndim == 3))
+    return jfif.assemble(w, h, config, [scan], huffman_specs=specs)
+
+
+def gray_scan(levels: torch.Tensor, state: tables.EncoderState, nbh: int,
+              nbw: int, config: EncodeConfig, key=None):
+    """The entropy half of a gray device encode: levels [64, nb] on a
+    device -> (scan bytes, optimal specs for the header or None). The DC
+    differences are computed once; with optimize_huffman pass 1 counts
+    the symbols of exactly these levels and differences, and pass 2
+    encodes them with the optimal tables."""
+    dcd = dc_differences(levels[0], config.restart_interval)
+    huff, specs = state.huff, None
+    if config.optimize_huffman:
+        specs, (huff,) = optimal_tables(symbol_histograms(levels, dcd),
+                                        ("lum",), levels.device)
+    return encode_levels(levels, huff, nbh, nbw, config, key, dcd), specs
+
+
+def host_scan(zz: np.ndarray, config: EncodeConfig, kinds,
+              table_sel=None, comp_id=None, mcu_slots: int = 1):
+    """entropy="host": levels [nslots, 64] in scan order -> (entropy
+    segments, optimal specs or None) by the numpy coder, with restart
+    segments of restart_interval MCUs of mcu_slots blocks and, for
+    optimize_huffman, floored 2-pass tables of the given classes."""
+    seg_ids = None
+    if config.restart_interval:
+        seg_ids = (np.arange(zz.shape[0]) // mcu_slots
+                   // config.restart_interval)
+    specs = luts = None
+    if config.optimize_huffman:
+        specs = _optimal_specs(entropy_host.symbol_frequencies(
+            zz, table_sel, comp_id, seg_ids), kinds)
+        luts = tables.huffman_luts_from_specs(specs)
+    return entropy_host.encode_scan(zz, table_sel, comp_id, seg_ids,
+                                    config.pad_ones, luts), specs
+
+
+def _optimal_specs(freqs: dict, kinds) -> dict:
+    """Package-merge (bits, values) specs of the given table classes
+    ("lum", "chrom") from 256-bin histograms, floored as every 2-pass
+    path floors them (tables.floor_frequencies)."""
+    freqs = tables.floor_frequencies(freqs)
+    return {k: tables.optimal_spec(freqs[k])
+            for kind in kinds for k in (f"dc_{kind}", f"ac_{kind}")}
+
+
+def optimal_tables(counts: torch.Tensor, kinds, device):
+    """The host step between the passes of a 2-pass encode: symbol counts
+    on the card (entropy.device.symbol_histograms) -> one readback ->
+    package-merge specs of the given table classes -> (specs for the JFIF
+    header, one [192] K4 table per class on `device`)."""
+    specs = _optimal_specs(assemble_histograms(counts), kinds)
+    luts = tables.huffman_luts_from_specs(specs)
+    return specs, tuple(tables.huffman_table(luts, kind, device)
+                        for kind in kinds)
 
 
 def encode_levels(levels: torch.Tensor, huff: torch.Tensor, nbh: int,
-                  nbw: int, config: EncodeConfig, key=None) -> bytes:
+                  nbw: int, config: EncodeConfig, key=None,
+                  dcd: torch.Tensor | None = None) -> bytes:
     """The entropy half of the device encode: levels [64, nb] int32 on a
-    device -> stuffed scan bytes, climbing the capacity ladder on
-    overflow. `key` names the encode site for capacity_ladder."""
-    dcd = dc_differences(levels[0])
+    device (and their DC differences, computed here when None) -> stuffed
+    scan bytes, RST-delimited with restart_interval, climbing the
+    capacity ladder on overflow. `key` names the encode site for
+    capacity_ladder."""
+    if dcd is None:
+        dcd = dc_differences(levels[0], config.restart_interval)
     for cap in capacity_ladder(config, key):
         words, bits = encode_blocks(levels, dcd, huff, cap)
-        scan = finish_scan(words, bits, bits > cap * 32, nbh, nbw,
-                           config.pad_ones)
+        scan = finish_streams(words, bits, bits > cap * 32, nbh, nbw, config)
         if scan is not None:
             record_cap(key, cap)
             return scan
     raise RuntimeError("worst-case entropy capacity overflowed (bug)")
+
+
+def finish_streams(words: torch.Tensor, bits: torch.Tensor,
+                   overflow: torch.Tensor, nbh: int, nbw: int,
+                   config: EncodeConfig) -> bytes | None:
+    """Streams of an nbh x nbw grid (blocks or MCUs) in scan order ->
+    the scan bytes: restart segments of restart_interval streams
+    (finish_restart_scan), else one segment (finish_scan)."""
+    if config.restart_interval:
+        return finish_restart_scan(words, bits, overflow,
+                                   config.restart_interval, config.pad_ones)
+    return finish_scan(words, bits, overflow, nbh, nbw, config.pad_ones)
 
 
 def finish_scan(words: torch.Tensor, bits: torch.Tensor,
@@ -136,6 +216,26 @@ def finish_scan(words: torch.Tensor, bits: torch.Tensor,
         return native.words_to_stuffed(words_np, total_bits)
     raw = np.frombuffer(words_np.astype(">u4").tobytes(), np.uint8)
     return entropy_host.stuff_bytes(raw[: total_bits // 8])
+
+
+def finish_restart_scan(words: torch.Tensor, bits: torch.Tensor,
+                        overflow: torch.Tensor, seg_len: int,
+                        pad_ones: bool) -> bytes | None:
+    """Streams [C, n] + bits [n] in scan order -> K12 (segments of
+    seg_len streams, byte-aligned and padded, back to back) -> one
+    readback of (any overflow, total bits), then of the valid word prefix
+    and the segment totals -> the RST-delimited stuffed scan; None if
+    `overflow` holds anywhere."""
+    stream, seg_tot, total = stitch_segments(words, bits, seg_len, pad_ones)
+    overflowed, total_bits = torch.stack(
+        [overflow.any().to(torch.int64), total]
+    ).tolist()
+    if overflowed:
+        return None
+    nwords = (total_bits + 31) // 32
+    host = torch.cat([stream[:nwords], seg_tot]).cpu().numpy()
+    return entropy_host.scan_from_words(host[:nwords].view(np.uint32),
+                                        host[nwords:].astype(np.int64) // 8)
 
 
 _CAP_HISTORY_MAX = 4096

@@ -1,10 +1,11 @@
 """JPEG constant tables, canonical Huffman codes, and the encoder state.
 
-Counterpart of `jpegtpu/tables.py` (its standard tables): the ITU-T T.81
-Annex-K luminance and chrominance quantization and Huffman tables,
-IJG quality scaling, the zigzag permutation, and both DCT bases. These
-are numpy, as in jpegtpu; `encoder_state_from_numpy` turns them into the
-small device tensors the port's kernels read.
+Counterpart of `jpegtpu/tables.py`: the ITU-T T.81 Annex-K luminance and
+chrominance quantization and Huffman tables, IJG quality scaling, the
+zigzag permutation, both DCT bases, and the optimal (2-pass) Huffman
+specs built from symbol histograms. These are numpy, as in jpegtpu;
+`encoder_state_from_numpy` and `huffman_table` turn them into the small
+device tensors the port's kernels read.
 """
 from __future__ import annotations
 
@@ -207,6 +208,89 @@ def huffman_luts():
 
 
 # ---------------------------------------------------------------------------
+# 2-pass optimal tables (jpegtpu.tables: the libjpeg optimize_coding
+# capability, built on package-merge)
+# ---------------------------------------------------------------------------
+
+def _package_merge(items: list, max_len: int) -> dict:
+    """Optimal length-limited code lengths (package-merge).
+
+    items: [(freq, symbol)]. Returns {symbol: length} with every length
+    <= max_len, minimizing sum(freq * length)."""
+    n = len(items)
+    base = sorted([(w, (s,)) for w, s in items])
+    plist = list(base)
+    for _ in range(max_len - 1):
+        packaged = [
+            (plist[i][0] + plist[i + 1][0], plist[i][1] + plist[i + 1][1])
+            for i in range(0, len(plist) - 1, 2)
+        ]
+        plist = sorted(base + packaged)
+    lengths = {s: 0 for _, s in items}
+    for _w, ss in plist[: 2 * (n - 1)]:
+        for s in ss:
+            lengths[s] += 1
+    return lengths
+
+
+def optimal_spec(freqs: np.ndarray, max_len: int = 16):
+    """Optimal T.81-legal Huffman spec (bits[16], values) for a 256-bin
+    symbol frequency histogram.
+
+    A reserved dummy symbol with the minimum weight is included and then
+    dropped: it always lands as the LAST code of the deepest level in
+    canonical order, so the all-ones codeword stays unassigned as T.81
+    requires (C.2)."""
+    f = np.asarray(freqs, dtype=np.int64)
+    syms = np.nonzero(f)[0]
+    if syms.size == 0:
+        return np.zeros(16, np.uint8), np.zeros(0, np.uint8)
+    items = [(int(f[s]), int(s)) for s in syms] + [(1, 256)]
+    if len(items) > (1 << max_len):
+        raise ValueError("alphabet exceeds code space")
+    lengths = _package_merge(items, max_len)
+    pairs = sorted((ln, s) for s, ln in lengths.items() if s != 256)
+    bits = np.zeros(16, np.uint8)
+    for ln, _s in pairs:
+        bits[ln - 1] += 1
+    values = np.array([s for _ln, s in pairs], np.uint8)
+    return bits, values
+
+
+def optimal_specs_from_frequencies(freqs: dict, max_len: int = 16) -> dict:
+    """Per-class optimal specs: {'dc_lum': (bits, values), ...} from
+    256-bin histograms keyed as huffman_luts()."""
+    return {k: optimal_spec(v, max_len) for k, v in freqs.items()}
+
+
+def floor_frequencies(freqs: dict) -> dict:
+    """Every structurally emittable symbol (12 DC size categories; AC
+    (run, size) with 1 <= size <= 10, ZRL 0xF0 and EOB 0x00) gets count
+    >= 1, so a code exists even for a symbol pass 1 never saw. Every
+    optimize_huffman path floors, in both packages, so their 2-pass
+    outputs stay byte-comparable."""
+    dc_mask = np.zeros(256, np.int64)
+    dc_mask[:12] = 1
+    ac_mask = np.zeros(256, np.int64)
+    for r in range(16):
+        for s in range(1, 11):
+            ac_mask[(r << 4) | s] = 1
+    ac_mask[0xF0] = 1
+    ac_mask[0x00] = 1
+    out = {}
+    for k, v in freqs.items():
+        m = dc_mask if k.startswith("dc") else ac_mask
+        out[k] = np.maximum(np.asarray(v, np.int64), m)
+    return out
+
+
+def huffman_luts_from_specs(specs: dict) -> dict:
+    """Dense (codes, lengths) LUTs from per-class (bits, values) specs:
+    the custom-table edition of huffman_luts()."""
+    return {k: canonical_codes(b, v) for k, (b, v) in specs.items()}
+
+
+# ---------------------------------------------------------------------------
 # DCT bases
 # ---------------------------------------------------------------------------
 
@@ -301,6 +385,15 @@ def pack_huffman_table(dc_codes, dc_lens, ac_codes, ac_lens) -> np.ndarray:
     return out
 
 
+def huffman_table(luts: dict, kind: str, device) -> torch.Tensor:
+    """The [192] int32 table K4 reads for one table class ("lum" or
+    "chrom") of a (codes, lengths) LUT dict (huffman_luts() or
+    huffman_luts_from_specs()), on `device`."""
+    return torch.tensor(pack_huffman_table(*luts[f"dc_{kind}"],
+                                           *luts[f"ac_{kind}"]),
+                        device=device)
+
+
 def encoder_state_from_numpy(luma_quant, chroma_quant, dct_basis, luts,
                              device) -> EncoderState:
     """numpy tables (as jpegtpu computes them) -> the kernels' tensors.
@@ -318,18 +411,14 @@ def encoder_state_from_numpy(luma_quant, chroma_quant, dct_basis, luts,
         # row-major memory (the reference basis is a transposed view)
         return torch.tensor(np.ascontiguousarray(a, dtype), device=device)
 
-    def huff(kind):
-        return dense(pack_huffman_table(*luts[f"dc_{kind}"],
-                                        *luts[f"ac_{kind}"]), np.int32)
-
     basis64 = np.asarray(dct_basis, np.float64).reshape(8, 8)
     return EncoderState(
         quant=dense(np.asarray(luma_quant).reshape(64), np.int32),
         basis=dense(basis64, np.float32),
         basis_int=dense(np.round(basis64 * (1 << INT_FRAC)), np.int32),
-        huff=huff("lum"),
+        huff=huffman_table(luts, "lum", device),
         chroma_quant=dense(np.asarray(chroma_quant).reshape(64), np.int32),
-        huff_chroma=huff("chrom"),
+        huff_chroma=huffman_table(luts, "chrom", device),
     )
 
 

@@ -9,9 +9,10 @@ import pytest
 import torch
 
 import jpegtpu_torch
-from jpegtpu_torch import tables
-from jpegtpu_torch.entropy import concat, merge, pack
-from jpegtpu_torch.entropy.device import dc_differences, y_dc_differences
+from jpegtpu_torch import pipeline, tables
+from jpegtpu_torch.entropy import concat, merge, pack, stitch
+from jpegtpu_torch.entropy.device import (dc_differences, symbol_histograms,
+                                          y_dc_differences)
 from jpegtpu_torch.ops import transform
 
 pytestmark = pytest.mark.gpu
@@ -156,3 +157,80 @@ def test_color_encode_matches_cpu_in_int32_mode(cuda, ss):
                                          dct_dtype="int32")
         assert jpegtpu_torch.encode_color(img, cfg) == (
             jpegtpu_torch.encode_color(img, cfg, device="cpu"))
+
+
+def _streams(cuda, c, n, seed):
+    """Random per-stream words [c, n] (zero past each stream's bits, as
+    K4 and K5 store them) and bit counts [n], a third of them shorter
+    than a byte."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, c * 32 + 1, n)
+    short = rng.random(n) < 0.3
+    bits[short] = rng.integers(0, 8, int(short.sum()))
+    valid = (bits[None, :] - 32 * np.arange(c)[:, None]).clip(0, 32)
+    keep = ((1 << valid) - 1) << (32 - valid)
+    words = rng.integers(0, 2**32, (c, n), dtype=np.int64) & keep
+    return (torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(cuda),
+            torch.from_numpy(bits.astype(np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("seg_len", [1, 5, 128, 300])
+@pytest.mark.parametrize("c,n", [(8, 1001), (48, 777), (1, 64)])
+@pytest.mark.parametrize("pad_ones", [True, False])
+def test_stitch_matches_plain(cuda, seg_len, c, n, pad_ones):
+    """K12 against its plain version: segments shorter than a word, many
+    segments in one word, a ragged last segment, one segment."""
+    words, bits = _streams(cuda, c, n, seg_len * 7 + c)
+    got = stitch.stitch_segments(words, bits, seg_len, pad_ones)
+    want = stitch.stitch_segments_plain(words, bits, seg_len, pad_ones)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_stitch_clamps_overflowed_streams(cuda):
+    """Streams past C words (the encode will retry) count C * 32 bits,
+    between 3-bit streams (zero past their bits, as K4 stores them)."""
+    words = torch.full((2, 9), -1, dtype=torch.int32, device=cuda)
+    bits = torch.full((9,), 100, dtype=torch.int32, device=cuda)
+    bits[::2] = 3
+    words[:, ::2] = 0
+    words[0, ::2] = -(1 << 29)  # 0xE0000000: the top 3 bits
+    got = stitch.stitch_segments(words, bits, 2)
+    want = stitch.stitch_segments_plain(words, bits, 2)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_encode_blocks_with_optimal_tables_matches_plain(cuda):
+    """K4 with runtime tables (the 2-pass optimal codes, up to 16 bits)
+    against its plain version, at every rung."""
+    rng = np.random.default_rng(12)
+    img = torch.from_numpy(rng.integers(0, 256, (200, 264), np.uint8)).to(cuda)
+    cfg = jpegtpu_torch.EncodeConfig(quality=90)
+    state = tables.encoder_state(cfg, cuda)
+    lv = transform.transform(img, state, True)
+    dcd = dc_differences(lv[0], 7)
+    _, (huff,) = pipeline.optimal_tables(
+        symbol_histograms(lv[:, ::3].contiguous(), dcd[::3].contiguous()),
+        ("lum",), cuda)
+    for cap in (8, 16, 53):
+        got = pack.encode_blocks(lv, dcd, huff, cap)
+        want = pack.encode_blocks_plain(lv, dcd, huff, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kw", [
+    {"restart_interval": 1}, {"restart_interval": 13},
+    {"optimize_huffman": True},
+    {"restart_interval": 4, "optimize_huffman": True, "quality": 100},
+    {"subsampling": "420", "restart_interval": 1},
+    {"subsampling": "422", "restart_interval": 5, "optimize_huffman": True},
+    {"subsampling": "444", "optimize_huffman": True, "pad_ones": False},
+])
+def test_restart_and_two_pass_encode_match_cpu_in_int32_mode(cuda, kw):
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (61, 93, 3), np.uint8)
+    cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32", **kw)
+    encode = (jpegtpu_torch.encode_grayscale if cfg.n_components == 1
+              else jpegtpu_torch.encode_color)
+    assert encode(img, cfg) == encode(img, cfg, device="cpu")
