@@ -11,13 +11,20 @@ main paths at the reference's own image size, 3024 x 4032:
          K12;
   4:2:0 restart (restart_interval=252, one MCU row): K2, K3, K4, K5, K12;
   gray 2-pass (optimize_huffman=True): K1, K4 with runtime tables, K8, K9;
-  4:2:0 restart 2-pass: K2, K3, K4 with runtime tables, K5, K12.
+  4:2:0 restart 2-pass: K2, K3, K4 with runtime tables, K5, K12;
+and the batch paths at the reference's batch configuration, 1024 images
+of 512 x 512:
+  gray batch (encode_grayscale_batch): K1, K4, K8 at segment width 64,
+         K11;
+  4:2:0 batch (encode_color_batch): K2, K3, K4, K5, K8 at width 32, K11;
+  and both with shared 2-pass tables.
 For each path it holds every kernel against its plain PyTorch version at
 the path's shapes (K12 also at restart_interval 1 and with a ragged last
-segment), encodes the image end to end through the entry point (launch
-counts reset just before and read just after), checks the bytes against
-the port's CPU path, climbs the capacity ladder, and times each kernel
-beside its bound. The color path also checks 4:2:2 and 4:4:4 at
+segment; K8 and K11 also at the top rung), encodes end to end through
+the entry point (launch counts reset just before and read just after),
+checks the bytes against the port's CPU path (a batch file also against
+its single-image encode), climbs the capacity ladder, and times each
+kernel beside its bound. The color path also checks 4:2:2 and 4:4:4 at
 1024 x 1536. Every timing line carries the card's name and power limit.
 The line before the last lists the kernels as JSON, one entry per kernel
 and path; the last line is the JSON {"ok": true, "device": {...}}. Any
@@ -35,16 +42,21 @@ import time
 import numpy as np
 import torch
 
-from jpegtpu_torch import (EncodeConfig, _build, color_pipeline, native,
-                           pipeline, tables)
+from jpegtpu_torch import (EncodeConfig, _build, batch, color_pipeline,
+                           native, pipeline, tables)
 from jpegtpu_torch.entropy import concat, merge, pack, stitch
-from jpegtpu_torch.entropy.device import (MAX_WORDS_PER_BLOCK, dc_differences,
+from jpegtpu_torch.entropy import host as entropy_host
+from jpegtpu_torch.entropy.device import (MAX_WORDS_PER_BLOCK,
+                                          assemble_histograms, dc_differences,
                                           symbol_histograms, y_dc_differences)
 from jpegtpu_torch.ops import transform
 
 H, W = 3024, 4032  # 12.19 MPix, the reference's image size
 LADDER_H, LADDER_W = 512, 512
 SIDE_H, SIDE_W = 1024, 1536  # the 4:2:2 and 4:4:4 checks
+# the reference's batch configuration (bench.py:354-416): 1024 x 512 x 512
+BATCH_N, BATCH_H, BATCH_W = 1024, 512, 512
+TOP_N = 128  # images of the top-rung K8 / K11 checks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPS = 20
@@ -547,8 +559,8 @@ def restart_and_two_pass_phases(dev, say) -> list:
             k12[f"gray_{ri}_pad_zeros"] = stitch_check("gray", words, bits,
                                                        ri, False)
     for ri in (nmcw, 1):  # an MCU row; every MCU
-        c = EncodeConfig(subsampling="420", restart_interval=ri)
-        dy, dc = color_pipeline.color_dc_differences(ly, lc, nmch, nmcw, c)
+        dy, dc = color_pipeline.color_dc_differences(ly, lc, nmch, nmcw,
+                                                     "420", ri)
         wy, by = pack.encode_blocks(ly, dy, state.huff, cap)
         wc, bc = pack.encode_blocks(lc, dc, state.huff_chroma, cap)
         mw, mb = merge.merge_mcu(wy, by, wc, bc, nmch, nmcw, "420")
@@ -562,7 +574,7 @@ def restart_and_two_pass_phases(dev, say) -> list:
     specs_g, (huff_g,) = pipeline.optimal_tables(
         symbol_histograms(lv, dcd_g), ("lum",), dev)
     dcd_y, dcd_c = color_pipeline.color_dc_differences(ly, lc, nmch, nmcw,
-                                                       cfg_c)
+                                                       "420", nmcw)
     specs_c, (huff_l, huff_c) = pipeline.optimal_tables(
         symbol_histograms(ly, dcd_y, 0) + symbol_histograms(lc, dcd_c, 1),
         ("lum", "chrom"), dev)
@@ -716,6 +728,326 @@ def restart_and_two_pass_phases(dev, say) -> list:
     say("kernel_time", name="stitch_segments", path="gray_restart_1",
         shape=[H, W], ms=time_ms(lambda: stitch.stitch_segments(w1, b1, 1)))
     return kernels
+
+
+def batch_images(n: int, h: int, w: int, color: bool, seed: int) -> np.ndarray:
+    """n distinct images of make_image's (or make_color_image's) content,
+    each with its own noise and brightness, made on the card from a seed:
+    uint8 [n, h, w] or [n, h, w, 3] on the host."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+    grad = (xx + yy) * (255.0 / (h + w))
+    tex = 20.0 * torch.sin(xx / 3.1) * torch.cos(yy / 2.7)
+    shift = (torch.arange(n, device="cuda") % 61 - 30).float()[:, None, None]
+
+    def chan(a: float, b: float) -> torch.Tensor:
+        noise = torch.randn((n, h, w), generator=g, device="cuda")
+        return grad * a + tex * b + shift + 6.0 * noise
+
+    x = (torch.stack([chan(0.9, 1.0), chan(1.0, 1.0), chan(1.1, -1.0)], -1)
+         if color else chan(1.0, 1.0))
+    return x.clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def batch_stage_breakdown(images: list, cfg, reps: int = 5) -> dict:
+    """Host-clock milliseconds of each stage of one batch encode (one
+    group, gray or 4:2:0, first rung), each ended by a synchronize
+    (medians over reps)."""
+    stages = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        stages.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return time.perf_counter()
+
+    n = len(images)
+    h, w = images[0].shape[:2]
+    color = cfg.n_components == 3
+    nbh, nbw = (h // 16, w // 16) if color else (h // 8, w // 8)
+    cap = cfg.capacity_words_per_block
+    ws = batch.segment_width(nbw)
+    for _ in range(reps):
+        t = time.perf_counter()
+        stack = np.stack(images)
+        t = mark("host_stack", t)
+        x = torch.from_numpy(stack).cuda()
+        state = tables.encoder_state(cfg, "cuda")
+        t = mark("h2d_images_and_tables", t)
+        if color:
+            rgb = x.reshape(n * h, w, 3)
+            ly = transform.transform_rgb_y(rgb, state, False)
+            lc = transform.transform_rgb_chroma(rgb, state, False, "420")
+            t = mark("K2_K3_transform", t)
+            dcd = color_pipeline.color_dc_differences(ly, lc, n * nbh, nbw,
+                                                      "420", nbh * nbw)
+            t = mark("dc_differences", t)
+            wy, by = pack.encode_blocks(ly, dcd[0], state.huff, cap)
+            wc, bc = pack.encode_blocks(lc, dcd[1], state.huff_chroma, cap)
+            t = mark("K4_pack_x2", t)
+            words, bits = merge.merge_mcu(wy, by, wc, bc, n * nbh, nbw, "420")
+            over = torch.cat([by, bc]) > cap * 32
+            t = mark("K5_merge_mcu", t)
+        else:
+            lv = transform.transform(x.reshape(n * h, w), state, False)
+            t = mark("K1_transform", t)
+            dcd = dc_differences(lv[0], nbh * nbw)
+            t = mark("dc_differences", t)
+            words, bits = pack.encode_blocks(lv, dcd, state.huff, cap)
+            over = bits > cap * 32
+            t = mark("K4_pack", t)
+        segs, seg_bits = concat.merge_rows(words, bits, n * nbh, nbw, ws)
+        t = mark("K8_merge_rows_ws", t)
+        streams, totals = concat.stream_concat_rows(
+            segs, seg_bits, segs.shape[0] // n, words.shape[0] * nbh * nbw,
+            cfg.pad_ones)
+        t = mark("K11_stream_concat_rows_with_prefix_sums_and_pad", t)
+        head = torch.cat([over.any().to(torch.int64).reshape(1),
+                          totals]).tolist()
+        t = mark("d2h_overflow_and_totals", t)
+        nw = (max(head[1:]) + 31) // 32
+        words_np = streams[:, :nw].cpu().numpy().view(np.uint32)
+        t = mark("d2h_valid_words", t)
+        scans = pipeline.segments_from_streams(words_np, head[1:])
+        t = mark("host_stuff_x_images", t)
+        for im, scan in zip(images, scans):
+            pipeline.jfif.assemble(im.shape[1], im.shape[0], cfg, [scan])
+        mark("host_jfif_x_images", t)
+    return {k: float(np.median(v)) for k, v in stages.items()}
+
+
+def batch_phases(dev, say) -> list:
+    """The batch main path (M5) at the reference's batch configuration,
+    1024 images of 512 x 512, gray and 4:2:0 (bench.py:354-416): K8 at the
+    batch's segment width and K11 against their plain versions (cap 8 on
+    the batch, the top rung on a smaller noise batch), end to end through
+    encode_grayscale_batch / encode_color_batch with every file held
+    against the single-image encode, shared 2-pass tables against the CPU
+    entropy chain on the card's levels, stage breakdowns, reduced-size
+    checks against the CPU path, and the kernels' times. Returns the
+    kernel entries."""
+    n, h, w = BATCH_N, BATCH_H, BATCH_W
+    cap = 8
+    cpu = torch.device("cpu")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    entries = []
+    for kind in ("gray", "420"):
+        color = kind == "420"
+        cfg = EncodeConfig(subsampling="420") if color else EncodeConfig()
+        encode_batch = (batch.encode_color_batch if color
+                        else batch.encode_grayscale_batch)
+        encode_one = (color_pipeline.encode_color if color
+                      else pipeline.encode_grayscale)
+        shape = [n, h, w, 3] if color else [n, h, w]
+        t0 = time.perf_counter()
+        arr = batch_images(n, h, w, color, seed=42)
+        images = list(arr)
+        say("batch_images", path=f"batch_{kind}", shape=shape,
+            seconds=time.perf_counter() - t0)
+
+        # --- 17. K8 (segment width) and K11 against their plain versions
+        def streams_of(x, c, cap):
+            """Stack x [m, h, w(, 3)] on the card -> (words, bits, nbh,
+            nbw, levels, dcd) of its first rung's K4 (and K5)."""
+            m = x.shape[0]
+            st = tables.encoder_state(c, dev)
+            int_mode = c.dct_dtype == "int32"
+            if color:
+                rgb = x.reshape(m * h, w, 3)
+                ly = transform.transform_rgb_y(rgb, st, int_mode)
+                lc = transform.transform_rgb_chroma(rgb, st, int_mode, "420")
+                nbh, nbw = h // 16, w // 16
+                dcd = color_pipeline.color_dc_differences(
+                    ly, lc, m * nbh, nbw, "420", nbh * nbw)
+                wd, bt, _ = color_pipeline.mcu_streams(ly, lc, dcd, st,
+                                                       m * nbh, nbw, "420",
+                                                       cap)
+                return wd, bt, nbh, nbw, (ly, lc), dcd
+            lv = transform.transform(x.reshape(m * h, w), st, int_mode)
+            nbh, nbw = h // 8, w // 8
+            dcd = dc_differences(lv[0], nbh * nbw)
+            wd, bt = pack.encode_blocks(lv, dcd, st.huff, cap)
+            return wd, bt, nbh, nbw, (lv,), dcd
+
+        def k8_k11(words, bits, m, nbh, nbw, name):
+            ws = batch.segment_width(nbw)
+            segs, seg_bits = concat.merge_rows(words, bits, m * nbh, nbw, ws)
+            res = {"merge_rows": equal_streams(
+                f"K8 ws={ws} {name}", (segs, seg_bits),
+                concat.merge_rows_plain(words, bits, m * nbh, nbw, ws))}
+            args = (segs, seg_bits, segs.shape[0] // m,
+                    words.shape[0] * nbh * nbw, True)
+            res["stream_concat_rows"] = equal_streams(
+                f"K11 {name}", concat.stream_concat_rows(*args),
+                concat.stream_concat_rows_plain(*args))
+            return res, ws, (segs, seg_bits), args
+
+        x = torch.from_numpy(arr).to(dev)
+        words, bits, nbh, nbw, levels, dcd = streams_of(x, cfg, cap)
+        check(int(bits.max()) <= cap * 32,
+              f"batch {kind}: the batch overflowed cap 8")
+        results, ws, (segs, seg_bits), k11_args = k8_k11(
+            words, bits, n, nbh, nbw, f"batch {kind} cap 8")
+        noise = torch.randint(0, 256, [TOP_N] + shape[1:], generator=g,
+                              device=dev, dtype=torch.uint8)
+        cfg100 = dataclasses.replace(cfg, quality=100, dct_dtype="int32")
+        top = MAX_WORDS_PER_BLOCK
+        wt, bt, *_ = streams_of(noise, cfg100, top)
+        top_res, _, (segs_t, _), _ = k8_k11(wt, bt, TOP_N, nbh, nbw,
+                                            f"batch {kind} cap {top}")
+        del wt, bt
+        say("batch_kernels_vs_plain", path=f"batch_{kind}", shape=shape,
+            segment_width=ws, segments=int(segs.shape[0]),
+            segment_words=int(segs.shape[1]), cap8=results,
+            top_rung={"cap": top, "images": TOP_N, "content": "Q100 noise",
+                      "segment_words": int(segs_t.shape[1]), **top_res})
+        del segs_t
+
+        # --- 18. end to end through the batch entry point --------------
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        files = encode_batch(images, cfg)
+        first_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        path_kernels = (("transform_rgb_y", "transform_rgb_chroma",
+                         "encode_blocks", "merge_mcu") if color
+                        else ("transform", "encode_blocks"))
+        path_kernels += ("merge_rows", "stream_concat_rows")
+        check(all(launches[k] > 0 for k in path_kernels),
+              f"batch {kind} skipped a kernel: {launches}")
+        t0 = time.perf_counter()
+        for i, im in enumerate(images):
+            check(files[i] == encode_one(im, cfg),
+                  f"batch {kind}: file {i} != its single-image encode")
+        single_s = time.perf_counter() - t0
+        e2e_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            encode_batch(images, cfg)
+            e2e_s.append(time.perf_counter() - t0)
+        e2e_med = float(np.median(e2e_s))
+        say("batch_end_to_end", path=f"batch_{kind}", shape=shape,
+            quality=cfg.quality, bytes=sum(map(len, files)),
+            first_call_s=first_s, median_s=e2e_med, runs_s=e2e_s,
+            mpix_per_s=n * h * w / 1e6 / e2e_med, launches=launches,
+            files_equal_single_image=n, single_image_encodes_s=single_s)
+        say("batch_stage_breakdown_ms", path=f"batch_{kind}", shape=shape,
+            **batch_stage_breakdown(images, cfg))
+
+        # --- 19. shared 2-pass tables at the same size -------------------
+        cfg2 = dataclasses.replace(cfg, optimize_huffman=True)
+        check((batch.shares_color_tables(h, w, "420", cap) if color
+               else batch.shares_gray_tables(h, w, cap)),
+              f"batch {kind}: 2-pass tables are not shared at {h} x {w}")
+        t0 = time.perf_counter()
+        files2 = encode_batch(images, cfg2)
+        two_pass_s = time.perf_counter() - t0
+        # the CPU entropy chain on the card's levels: the port's histogram
+        # and table build over the whole batch, then its numpy host coder
+        # on every 16th image
+        lv_cpu = [t.cpu() for t in levels]
+        dcd_cpu = [t.cpu() for t in dcd] if color else [dcd.cpu()]
+        counts = sum(symbol_histograms(lv, d, t)
+                     for t, (lv, d) in enumerate(zip(lv_cpu, dcd_cpu)))
+        kinds = ("lum", "chrom") if color else ("lum",)
+        specs = pipeline._optimal_specs(assemble_histograms(counts), kinds)
+        luts = tables.huffman_luts_from_specs(specs)
+        headers = pipeline.jfif.assemble(w, h, cfg2, [b""],
+                                         huffman_specs=specs)[:-2]
+        check(all(f.startswith(headers) for f in files2),
+              f"batch {kind} 2-pass: a file's tables != the CPU tables")
+        if color:
+            gather, sel, comp = color_pipeline._scan_layout(h, w, "420")
+            ny, nm = 4 * nbh * nbw, nbh * nbw
+        held = list(range(0, n, 16))
+        for i in held:
+            if color:
+                ly_c, lc_c = lv_cpu
+                allz = torch.cat([ly_c[:, i * ny:(i + 1) * ny],
+                                  lc_c[:, i * nm:(i + 1) * nm],
+                                  lc_c[:, (n + i) * nm:(n + i + 1) * nm]], 1)
+                zz = allz.T[torch.from_numpy(gather)].numpy()
+                scan = entropy_host.encode_scan(zz, sel.astype(np.int64),
+                                                comp, luts=luts)
+            else:
+                nb = nbh * nbw
+                zz = lv_cpu[0][:, i * nb:(i + 1) * nb].T.numpy()
+                scan = entropy_host.encode_scan(zz, luts=luts)
+            check(files2[i] == pipeline.jfif.assemble(
+                w, h, cfg2, scan, huffman_specs=specs),
+                f"batch {kind} 2-pass: file {i} != CPU chain on card levels")
+        del lv_cpu, dcd_cpu, levels, dcd
+        cfg2i = dataclasses.replace(cfg2, dct_dtype="int32")
+        check(encode_batch(images[:16], cfg2i)
+              == encode_batch(images[:16], cfg2i, device="cpu"),
+              f"batch {kind} 2-pass int32: card bytes != CPU batch path")
+        say("batch_two_pass", path=f"batch_{kind}", shape=shape,
+            seconds=two_pass_s, bytes=sum(map(len, files2)),
+            bytes_single_pass=sum(map(len, files)),
+            files_with_cpu_tables=n, files_held_against_cpu_chain=len(held),
+            int32_images_equal_cpu=len(images[:16]))
+
+        # --- 20. timings and bounds -------------------------------------
+        valid_words = int(((bits.long() + 31) // 32).sum())
+        valid_seg_words = int(((seg_bits.long() + 31) // 32).sum())
+        nseg, seg_words = segs.shape
+        slab_bytes = n * k11_args[3] * 4
+        specs_t = [
+            ("merge_rows", "jpegtpu_torch/csrc/concat.cu",
+             "jpegtpu/entropy/pallas_concat.py:240",
+             lambda: concat.merge_rows(words, bits, n * nbh, nbw, ws),
+             lambda: concat.merge_rows_plain(words, bits, n * nbh, nbw, ws),
+             valid_words * 4 + bits.numel() * 4 + nseg * seg_words * 4
+             + nseg * 4, valid_words * 2),
+            ("stream_concat_rows", "jpegtpu_torch/csrc/concat.cu",
+             "jpegtpu/entropy/pallas_concat.py:412",
+             lambda: concat.stream_concat_rows(*k11_args),
+             lambda: concat.stream_concat_rows_plain(*k11_args),
+             valid_seg_words * 4 + nseg * 4 + slab_bytes + n * 8,
+             valid_seg_words * 2),
+        ]
+        entries += time_kernels(specs_t, launches, results, f"batch_{kind}",
+                                shape, say)
+        del x, words, bits, segs, seg_bits, k11_args, files2
+        torch.cuda.empty_cache()
+
+    # --- 21. reduced size: geometries, the ladder, leaving shared tables
+    rng = np.random.default_rng(11)
+    # jpegtpu's own batch test shapes (tests/test_batch.py:220)
+    mixed = [np.roll(make_image(hh, ww), 5 * j, axis=1)
+             for hh, ww, k in ((48, 760, 2), (64, 640, 3), (40, 1366, 2),
+                               (56, 200, 5)) for j in range(k)]
+    mixed += [np.repeat(im[..., None], 3, -1) for im in mixed[:4]]
+    ladder = [make_image(LADDER_H, LADDER_W),
+              rng.integers(0, 256, (LADDER_H, LADDER_W), np.uint8)]
+    reduced = {}
+    for name, encode, cfg, images, kernel, want_launches in (
+        ("mixed_gray", batch.encode_grayscale_batch,
+         EncodeConfig(dct_dtype="int32"), mixed, "stream_concat_rows", 6),
+        ("mixed_420", batch.encode_color_batch,
+         EncodeConfig(dct_dtype="int32", subsampling="420"), mixed,
+         "stream_concat_rows", 4),
+        ("ladder_gray_q100", batch.encode_grayscale_batch,
+         EncodeConfig(dct_dtype="int32", quality=100), ladder,
+         "merge_rows", 3),
+        ("two_pass_420_leaves_shared_tables", batch.encode_color_batch,
+         EncodeConfig(dct_dtype="int32", quality=100, subsampling="420",
+                      optimize_huffman=True),
+         [np.repeat(im[..., None], 3, -1) for im in ladder],
+         "stream_concat_rows", 1),
+    ):
+        before = _build.LAUNCHES[kernel]
+        got = encode(images, cfg)
+        launched = _build.LAUNCHES[kernel] - before
+        check(launched == want_launches,
+              f"{name}: {launched} {kernel} launches, not {want_launches}")
+        check(got == encode(images, cfg, device="cpu"),
+              f"{name}: card bytes != CPU batch path")
+        reduced[name] = {"images": len(images), kernel: launched,
+                         "bytes": sum(map(len, got))}
+    say("batch_reduced_size", **reduced)
+    return entries
 
 
 def main() -> int:
@@ -886,6 +1218,7 @@ def main() -> int:
 
     kernels += color_phases(dev, say)
     kernels += restart_and_two_pass_phases(dev, say)
+    kernels += batch_phases(dev, say)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

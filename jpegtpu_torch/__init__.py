@@ -4,11 +4,13 @@ Hopper.
 The port of `jpegtpu` (JAX/Pallas on a TPU), which stays the reference
 it is held against byte for byte. It encodes one image per call, gray
 (`encode_grayscale`) or YCbCr color at 4:2:0, 4:2:2 or 4:4:4
-(`encode_color`): the Pallas kernels of those paths are hand-written CUDA
-kernels (csrc/), each with a plain PyTorch version beside it that runs
-when the tensors lie on the CPU. Entry points run on the CUDA device
+(`encode_color`), or many per call (`encode_grayscale_batch`,
+`encode_color_batch`): the Pallas kernels of those paths are hand-written
+CUDA kernels (csrc/), each with a plain PyTorch version beside it that
+runs when the tensors lie on the CPU. Entry points run on the CUDA device
 unless the caller passes `device="cpu"`.
 """
+from .batch import encode_color_batch, encode_grayscale_batch
 from .color_pipeline import color_coefficients, encode_color
 from .config import EncodeConfig
 from .pipeline import encode_file, encode_grayscale, grayscale_coefficients
@@ -19,7 +21,9 @@ __all__ = [
     "EncodeConfig",
     "color_coefficients",
     "encode_color",
+    "encode_color_batch",
     "encode_file",
     "encode_grayscale",
+    "encode_grayscale_batch",
     "grayscale_coefficients",
 ]

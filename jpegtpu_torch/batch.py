@@ -1,0 +1,275 @@
+"""Batch encode: many images per call (counterpart of `jpegtpu/batch.py`:
+encode_grayscale_batch and encode_color_batch, their bodies
+_batch_encode_fn and color_batch_raw_body, the stats passes
+_batch_gray_stats_fn and _batch_color_stats_fn, the shared-table paths
+_encode_gray_batch_optimized and _encode_color_batch_optimized, and the
+geometry rules _slot_geom, _gray_raw_ok and _color_raw_ok).
+
+Images are grouped by padded shape, as jpegtpu groups them, and each
+group runs as one stack. jpegtpu packs narrow images side by side into
+128-lane tiles, because a TPU tile is 128 lanes wide. Here the images of a
+group stack vertically and the single-image kernels run on the stack
+unchanged: gray [B * ph, pw] -> K1, color [B * ph, pw, 3] -> K2 + K3
+(heights are MCU multiples, so no block and no 2 x 2 chroma box crosses
+an image). Levels come out image after image in raster order, and each
+image's DC chains are the restart chains with one segment per image. K4
+runs once over every block (color: with both tables, then K5 over every
+MCU); K8 at the batch's segment width cuts the block (MCU) rows into
+segments that never cross an image, and K11 lays each image's segments
+back to back in a slab of its own and pads its final byte
+(entropy.concat.concat_segments). The host reads (any overflow, every
+image's total bits) once, then the valid words of all images in one copy,
+and stuffs and assembles each file. An overflow climbs the capacity
+ladder with the same kernels; the transform runs once. jpegtpu pads each
+group with blank images to a power of two to bound its recompiles;
+nothing compiles here, so no image is added.
+
+With optimize_huffman a group shares one set of 2-pass tables: the
+symbols of the whole stack are counted once, and K4 encodes the stack
+with the floored package-merge tables. Which groups share is part of
+jpegtpu's output, so the port keeps its rule (shares_gray_tables,
+shares_color_tables); every other image gets its own 2-pass tables from
+the single-image encoders. A restart interval or host entropy sends every
+image to the single-image encoders, as in jpegtpu.
+"""
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+import torch
+
+from . import tables
+from .color_pipeline import (color_dc_differences, color_tables, encode_color,
+                             mcu_streams)
+from .config import EncodeConfig
+from .entropy.concat import LANES, concat_segments
+from .entropy.device import dc_differences, symbol_histograms
+from .entropy.pack import encode_blocks
+from .io import jfif
+from .ops import color
+from .ops.blocks import (mcu_dims, pad_edge, padded_dims_color,
+                         sampling_factors, slots_per_mcu)
+from .ops.transform import transform, transform_rgb_chroma, transform_rgb_y
+from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
+                       optimal_tables, resolve_device, segments_from_streams)
+
+# jpegtpu's transform tile height in pixels (pallas_transform.TILE_H), which
+# its table-sharing rule counts in.
+_TILE_H = 64
+
+
+def segment_width(nbw: int) -> int:
+    """K8's segment width for a batch whose rows hold nbw blocks (or
+    MCUs): jpegtpu's slot width (_slot_geom), the power of two >= 16 that
+    holds a row of <= 64, else 128."""
+    ws = 16
+    while ws < nbw:
+        ws *= 2
+    return min(ws, LANES)
+
+
+def shares_gray_tables(ph: int, pw: int, cap: int) -> bool:
+    """Whether jpegtpu encodes a gray optimize_huffman group of padded
+    shape ph x pw at rung `cap` with tables shared by the group
+    (_gray_raw_ok); elsewhere it gives each image its own 2-pass tables.
+
+    The rule reproduces the reference's output, which it decides: the
+    budgets are its TPU kernel's (cap <= 16, at most 256 kernel rows per
+    image segment, a 12 MiB stream buffer in VMEM), not a limit of this
+    card."""
+    nbw = pw // 8
+    seg_rows = -(-ph // _TILE_H) * (_TILE_H // 8) * -(-nbw // LANES)
+    nb = (ph // 8) * nbw
+    return (cap <= 16 and seg_rows <= 256
+            and (nb * cap // LANES + cap + 8) * 512 <= 12 << 20)
+
+
+def shares_color_tables(ph: int, pw: int, subsampling: str,
+                        cap: int) -> bool:
+    """The color twin of shares_gray_tables (jpegtpu's _color_raw_ok):
+    cap <= 8, at most 256 kernel rows per image segment, and one image's
+    stream buffer plus two steps of row segments within 12 MiB of VMEM.
+    Like it, a rule of the reference's output, not a limit of this card."""
+    fy, fx = sampling_factors(subsampling)
+    nmch, nmcw = ph // (8 * fy), pw // (8 * fx)
+    seg_rows = -(-(ph // fy) // _TILE_H) * (_TILE_H // 8) * -(-nmcw // LANES)
+    mcap = slots_per_mcu(subsampling) * cap
+    out_rows = -(-(nmch * nmcw * mcap) // LANES) + mcap + 8
+    ws = segment_width(nmcw)
+    step_bytes = seg_rows * -(-(ws * mcap + mcap + 2) // LANES) * LANES * 4
+    return (cap <= 8 and seg_rows <= 256
+            and out_rows * 512 + 2 * step_bytes <= 12 << 20)
+
+
+def _prepare(images, config: EncodeConfig, mesh, n_components: int,
+             device) -> torch.device:
+    if mesh is not None:
+        raise NotImplementedError(
+            "batch sharding across devices (mesh) is not ported yet "
+            "(ROADMAP.md M7, multi-GPU)")
+    config.check_supported()
+    if config.n_components != n_components:
+        raise ValueError(
+            f"subsampling={config.subsampling!r} does not fit this batch "
+            "encoder: gray goes to encode_grayscale_batch, color to "
+            "encode_color_batch")
+    for image in images:
+        _check_image(image)
+    return resolve_device(device)
+
+
+def _groups(images, key) -> dict:
+    """Input indices by key(image), in order of first appearance."""
+    groups: dict = {}
+    for i, image in enumerate(images):
+        groups.setdefault(key(image), []).append(i)
+    return groups
+
+
+def _encode_stack(streams_at, caps, n_images: int, nbh: int, nbw: int,
+                  pad_ones: bool):
+    """The entropy finish of a stack of n_images images, each an nbh x nbw
+    grid of blocks (or MCUs): for each rung, streams_at(cap) -> (words
+    [C, n], bits [n], per-block overflow flags), then K8 + K11, one
+    readback of (any overflow, every image's total bits) and one of the
+    valid words of all images. Returns each image's stuffed scan, or None
+    when every rung overflowed."""
+    ws = segment_width(nbw)
+    for cap in caps:
+        words, bits, overflow = streams_at(cap)
+        streams, totals = concat_segments(words, bits, n_images * nbh, nbw,
+                                          n_images, ws, pad_ones)
+        head = torch.cat([overflow.any().to(torch.int64).reshape(1),
+                          totals]).tolist()
+        if head[0]:
+            continue
+        nwords = (max(head[1:]) + 31) // 32
+        words_np = streams[:, :nwords].cpu().numpy().view(np.uint32)
+        return segments_from_streams(words_np, head[1:])
+    return None
+
+
+def _gray_group(images: list, ph: int, pw: int, config: EncodeConfig,
+                dev: torch.device) -> list:
+    """One group of a gray batch (padded shape ph x pw, all [H, W] or all
+    RGB) -> its files in order."""
+    if config.optimize_huffman and not shares_gray_tables(ph, pw, 8):
+        return [encode_grayscale(image, config, device=dev)
+                for image in images]
+    stack = np.stack([pad_edge(image) for image in images])
+    b = len(images)
+    plane = torch.from_numpy(stack).to(dev).reshape(b * ph, *stack.shape[2:])
+    if plane.dim() == 3:
+        plane = color.rgb_to_y_reference(plane)
+    state = tables.encoder_state(config, dev)
+    levels = transform(plane.contiguous(), state, config.dct_dtype == "int32")
+    nbh, nbw = ph // 8, pw // 8
+    dcd = dc_differences(levels[0], nbh * nbw)
+    huff, specs, caps = state.huff, None, capacity_ladder(config)
+    if config.optimize_huffman:
+        specs, (huff,) = optimal_tables(symbol_histograms(levels, dcd),
+                                        ("lum",), dev)
+        caps = itertools.takewhile(
+            lambda cap: shares_gray_tables(ph, pw, cap), caps)
+
+    def streams_at(cap):
+        words, bits = encode_blocks(levels, dcd, huff, cap)
+        return words, bits, bits > cap * 32
+
+    scans = _encode_stack(streams_at, caps, b, nbh, nbw, config.pad_ones)
+    if scans is None:
+        if not config.optimize_huffman:
+            raise RuntimeError("worst-case entropy capacity overflowed (bug)")
+        # past the shared rungs jpegtpu gives each image its own tables
+        return [encode_grayscale(image, config, device=dev)
+                for image in images]
+    return [jfif.assemble(image.shape[1], image.shape[0], config, [scan],
+                          huffman_specs=specs)
+            for image, scan in zip(images, scans)]
+
+
+def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
+                 dev: torch.device) -> list:
+    """One group of a color batch (MCU-padded shape ph x pw) -> its files
+    in order."""
+    ss = config.subsampling
+    if config.optimize_huffman and not shares_color_tables(ph, pw, ss, 8):
+        return [encode_color(image, config, device=dev) for image in images]
+    stack = np.stack([
+        pad_edge(np.repeat(image[..., None], 3, axis=-1)
+                 if image.ndim == 2 else image, *mcu_dims(ss))
+        for image in images
+    ])
+    b = len(images)
+    rgb = torch.from_numpy(stack).to(dev).reshape(b * ph, pw, 3)
+    state = tables.encoder_state(config, dev)
+    int_mode = config.dct_dtype == "int32"
+    luma = transform_rgb_y(rgb, state, int_mode)
+    chroma = transform_rgb_chroma(rgb, state, int_mode, ss)
+    fy, fx = sampling_factors(ss)
+    nmch, nmcw = ph // (8 * fy), pw // (8 * fx)
+    dcd = color_dc_differences(luma, chroma, b * nmch, nmcw, ss,
+                               nmch * nmcw)
+    specs, caps = None, capacity_ladder(config)
+    if config.optimize_huffman:
+        specs, state = color_tables(luma, chroma, dcd, state)
+        caps = itertools.takewhile(
+            lambda cap: shares_color_tables(ph, pw, ss, cap), caps)
+    scans = _encode_stack(
+        lambda cap: mcu_streams(luma, chroma, dcd, state, b * nmch, nmcw, ss,
+                                cap),
+        caps, b, nmch, nmcw, config.pad_ones)
+    if scans is None:
+        if not config.optimize_huffman:
+            raise RuntimeError("worst-case entropy capacity overflowed (bug)")
+        # past the shared rung jpegtpu gives each image its own tables
+        return [encode_color(image, config, device=dev) for image in images]
+    return [jfif.assemble(image.shape[1], image.shape[0], config, [scan],
+                          huffman_specs=specs)
+            for image, scan in zip(images, scans)]
+
+
+def encode_grayscale_batch(images: list, config: EncodeConfig | None = None,
+                           mesh=None, *, device=None) -> list:
+    """Encode uint8 images ([H, W] luma or [H, W, 3] RGB) as baseline
+    grayscale JFIF byte strings, in input order, byte-identical to
+    jpegtpu's batch.encode_grayscale_batch (and so to its single-image
+    encodes, apart from the tables that optimize_huffman shares). mesh
+    (sharding across devices) is not ported yet."""
+    config = config or EncodeConfig()
+    dev = _prepare(images, config, mesh, 1, device)
+    if config.restart_interval or config.entropy != "device":
+        return [encode_grayscale(image, config, device=dev)
+                for image in images]
+    out: list = [None] * len(images)
+    groups = _groups(images, lambda image: (
+        -(-image.shape[0] // 8) * 8, -(-image.shape[1] // 8) * 8,
+        image.ndim == 3))
+    for (ph, pw, _), idxs in groups.items():
+        files = _gray_group([images[i] for i in idxs], ph, pw, config, dev)
+        for i, data in zip(idxs, files):
+            out[i] = data
+    return out
+
+
+def encode_color_batch(images: list, config: EncodeConfig | None = None,
+                       mesh=None, *, device=None) -> list:
+    """Encode uint8 images ([H, W, 3] RGB, or [H, W] gray promoted to RGB)
+    as baseline YCbCr JFIF byte strings, in input order, byte-identical to
+    jpegtpu's batch.encode_color_batch. The default config is 4:2:0 at
+    Q50. mesh (sharding across devices) is not ported yet."""
+    config = config or EncodeConfig(subsampling="420")
+    dev = _prepare(images, config, mesh, 3, device)
+    if config.restart_interval or config.entropy != "device":
+        return [encode_color(image, config, device=dev) for image in images]
+    out: list = [None] * len(images)
+    # 2-D and RGB images of one padded shape share a group (both encode
+    # as RGB), as in jpegtpu
+    groups = _groups(images, lambda image: padded_dims_color(
+        *image.shape[:2], config.subsampling))
+    for (ph, pw), idxs in groups.items():
+        files = _color_group([images[i] for i in idxs], ph, pw, config, dev)
+        for i, data in zip(idxs, files):
+            out[i] = data
+    return out

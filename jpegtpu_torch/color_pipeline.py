@@ -135,27 +135,37 @@ def color_scan(luma: torch.Tensor, chroma: torch.Tensor,
     with optimize_huffman pass 1 counts the luma blocks' symbols into the
     luminance classes and the chroma blocks' into the chrominance ones,
     and pass 2 encodes the same levels with the four optimal tables."""
-    dcd = color_dc_differences(luma, chroma, nmch, nmcw, config)
+    dcd = color_dc_differences(luma, chroma, nmch, nmcw, config.subsampling,
+                               config.restart_interval)
     specs = None
     if config.optimize_huffman:
-        counts = (symbol_histograms(luma, dcd[0], 0)
-                  + symbol_histograms(chroma, dcd[1], 1))
-        specs, (hl, hc) = optimal_tables(counts, ("lum", "chrom"),
-                                         luma.device)
-        state = state._replace(huff=hl, huff_chroma=hc)
+        specs, state = color_tables(luma, chroma, dcd, state)
     return encode_color_levels(luma, chroma, state, nmch, nmcw, config, key,
                                dcd), specs
 
 
+def color_tables(luma: torch.Tensor, chroma: torch.Tensor, dcd,
+                 state: tables.EncoderState):
+    """Pass 1 of a color 2-pass encode: the luma blocks' symbols counted
+    into the luminance classes and the chroma blocks' into the
+    chrominance ones -> (the four optimal specs for the header, state
+    with the optimal K4 tables)."""
+    counts = (symbol_histograms(luma, dcd[0], 0)
+              + symbol_histograms(chroma, dcd[1], 1))
+    specs, (hl, hc) = optimal_tables(counts, ("lum", "chrom"), luma.device)
+    return specs, state._replace(huff=hl, huff_chroma=hc)
+
+
 def color_dc_differences(luma: torch.Tensor, chroma: torch.Tensor,
-                         nmch: int, nmcw: int, config: EncodeConfig):
+                         nmch: int, nmcw: int, subsampling: str,
+                         seg_mcus: int = 0):
     """(luma DC differences [ny] along the scan's luma chain, Cb then Cr
-    DC differences [2 * nmcu]), each chain reset at every restart
-    segment's first MCU."""
-    ss, ri = config.subsampling, config.restart_interval
-    fy, fx = sampling_factors(ss)
-    dcd_y = y_dc_differences(luma[0].reshape(fy * nmch, fx * nmcw), ss, ri)
-    dcd_c = dc_differences(chroma[0].reshape(2, -1), ri)
+    DC differences [2 * nmcu]), each chain reset at every seg_mcus-th MCU
+    (a restart segment's first, or a stacked batch image's; 0 = never)."""
+    fy, fx = sampling_factors(subsampling)
+    dcd_y = y_dc_differences(luma[0].reshape(fy * nmch, fx * nmcw),
+                             subsampling, seg_mcus)
+    dcd_c = dc_differences(chroma[0].reshape(2, -1), seg_mcus)
     return dcd_y.reshape(-1), dcd_c.reshape(-1)
 
 
@@ -168,17 +178,26 @@ def encode_color_levels(luma: torch.Tensor, chroma: torch.Tensor,
     RST-delimited with restart_interval, climbing the capacity ladder on
     overflow. The tables are state.huff and state.huff_chroma. `key`
     names the encode site for capacity_ladder."""
-    ss = config.subsampling
     if dcd is None:
-        dcd = color_dc_differences(luma, chroma, nmch, nmcw, config)
-    dcd_y, dcd_c = dcd
+        dcd = color_dc_differences(luma, chroma, nmch, nmcw,
+                                   config.subsampling, config.restart_interval)
     for cap in capacity_ladder(config, key):
-        wy, by = encode_blocks(luma, dcd_y, state.huff, cap)
-        wc, bc = encode_blocks(chroma, dcd_c, state.huff_chroma, cap)
-        merged, mbits = merge_mcu(wy, by, wc, bc, nmch, nmcw, ss)
-        scan = finish_streams(merged, mbits, torch.cat([by, bc]) > cap * 32,
+        scan = finish_streams(*mcu_streams(luma, chroma, dcd, state, nmch,
+                                           nmcw, config.subsampling, cap),
                               nmch, nmcw, config)
         if scan is not None:
             record_cap(key, cap)
             return scan
     raise RuntimeError("worst-case entropy capacity overflowed (bug)")
+
+
+def mcu_streams(luma: torch.Tensor, chroma: torch.Tensor, dcd,
+                state: tables.EncoderState, nmch: int, nmcw: int,
+                subsampling: str, cap: int):
+    """K4 with the luminance and the chrominance table, then K5: levels
+    and their DC differences -> (MCU streams [E * cap, nmcu], bits
+    [nmcu], per-block overflow flags)."""
+    wy, by = encode_blocks(luma, dcd[0], state.huff, cap)
+    wc, bc = encode_blocks(chroma, dcd[1], state.huff_chroma, cap)
+    merged, mbits = merge_mcu(wy, by, wc, bc, nmch, nmcw, subsampling)
+    return merged, mbits, torch.cat([by, bc]) > cap * 32

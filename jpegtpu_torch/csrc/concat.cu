@@ -1,34 +1,46 @@
-// K8 + K9: per-block bit streams -> one scan-order stream.
+// K8 + K9 + K11: per-block bit streams -> one scan-order stream, or one
+// stream per image of a batch.
 //
 // Kernel A (merge_rows) replaces jpegtpu/entropy/pallas_concat.py:
-// merge_sublanes_pallas (_merge_kernel / _merge_kernel_skew, ws = 128).
+// merge_sublanes_pallas (_merge_kernel / _merge_kernel_skew, every ws).
 // Kernel B (stream_concat) replaces pallas_concat.py: stream_concat_pallas
-// (_stream_kernel).
+// (_stream_kernel). Kernel C (stream_concat_rows) replaces pallas_concat.py:
+// _stream_concat_rows (_stream_rows_kernel, via concat_segments_pallas) and
+// the tail padding after it (treepack.apply_tail_padding_segments).
 //
-// A row segment is up to 128 consecutive blocks of one block row: segment
-// (br, cg) holds blocks br * nbw + cg * 128 + l, l < 128, the last group
-// of a row ragged when nbw % 128 != 0 (pad lanes contribute nothing, which
-// replaces valid_mask). Segments are in scan order (br, cg).
+// A row segment is up to ws consecutive blocks of one block row (ws a power
+// of two, 16..128): segment (br, c) holds blocks br * nbw + c * ws + l,
+// l < ws, the last segment of a row ragged when nbw % ws != 0 (pad lanes
+// contribute nothing, which replaces valid_mask). Segments are in scan
+// order (br, c), each ws * (cap + 1) words. The single-image scan uses
+// ws = 128; a batch of images stacked vertically uses the narrowest width
+// that holds a row of <= 64 blocks, so no segment is mostly empty.
 //
-// Bound: bytes, both kernels (each stream word is read once and written
+// Bound: bytes, every kernel (each stream word is read once and written
 // once per kernel; ~7 MB at 12 MPix, cap 8, ~2 us each at 3.35 TB/s), so
 // the design keeps every global access coalesced and does the bit-granular
 // work in shared memory or with atomics:
-// - A: one thread block of 128 threads per segment. Shared-memory scan of
-//   the 128 bit counts; each thread funnel-shifts its block's words by
-//   offset & 31 and ORs them into a shared (cap + 1) * 128-word segment
-//   with shared atomicOr; the segment goes out in one coalesced pass.
-//   The TPU's one-hot MXU deposit and lane skew do not exist here. The
-//   segment lives in dynamic shared memory: above 48 KB (cap >= 96, which
-//   the color scan's per-MCU streams of E * cap words reach) the launch
-//   opts in to the device's larger limit first, and a segment past that
-//   limit is refused (jt_merge_rows_max_cap says where it lies).
+// - A: one thread block of max(ws, 32) threads holds max(ws, 32) / ws
+//   segments. A shared-memory Hillis-Steele scan of the bit counts,
+//   masked at segment edges; each thread funnel-shifts its block's words by
+//   offset & 31 and ORs them into its segment in shared memory with shared
+//   atomicOr; the block's segments, adjacent in the output, go out in one
+//   coalesced pass. The TPU's one-hot MXU deposit and lane skew do not
+//   exist here. The segments live in dynamic shared memory: above 48 KB
+//   (the color scan's per-MCU streams of E * cap words reach it) the launch
+//   opts in to the device's larger limit first, and a block past that
+//   limit is refused (jt_merge_rows_max_cap says where it lies for a ws).
 // - B: one thread block per segment; each thread builds one output word
 //   from two neighbouring segment words (funnel shift) and plain-stores it
 //   when all its 32 bits are this segment's, atomicOr's it into the zeroed
 //   output when it shares the word with a neighbouring segment (the first
 //   and last word). Device memory has no VMEM budget, so one kernel serves
 //   every image size (the TPU's chunked K10 is not needed for size).
+// - C: B's body with each segment placed in its own image's slab at its
+//   offset inside the image (one flat int64 scan in the wrapper, minus the
+//   image's base), so images never share a word; the thread that handles
+//   an image's last segment also ORs the 1s that pad its final byte, a bit
+//   no segment owns wholly, so no plain store races with it.
 // Shift counts are kept in [0, 31]: a shift by 32 is undefined in CUDA.
 
 #include <cstdint>
@@ -37,63 +49,71 @@
 namespace {
 
 constexpr int kLanes = 128;
+constexpr int kMinThreads = 32;
 constexpr int kStreamThreads = 256;
+
+__host__ __device__ inline int merge_threads(int ws) {
+  return ws < kMinThreads ? kMinThreads : ws;
+}
 
 __global__ void __launch_bounds__(kLanes)
 merge_rows_kernel(const unsigned* __restrict__ words,
-                  const int* __restrict__ bits, int nb, int cap, int nbw,
-                  unsigned* __restrict__ segs, int* __restrict__ seg_bits) {
-  extern __shared__ unsigned seg[];  // (cap + 1) * 128 words
+                  const int* __restrict__ bits, int nb, int cap, int nbh,
+                  int nbw, int ws, unsigned* __restrict__ segs,
+                  int* __restrict__ seg_bits) {
+  extern __shared__ unsigned seg[];  // blockDim.x / ws segments
   __shared__ int scan[kLanes];
-  const int ncg = (nbw + kLanes - 1) / kLanes;
-  const int s = blockIdx.x;
-  const int br = s / ncg, cg = s % ncg;
-  const int l = threadIdx.x;
-  const int col = cg * kLanes + l;
-  const size_t blk = (size_t)br * nbw + col;
+  const int t = threadIdx.x;
+  const int per_block = blockDim.x / ws;
+  const int per_row = (nbw + ws - 1) / ws;
+  const int nseg = nbh * per_row;
+  const int s0 = blockIdx.x * per_block;
+  const int s = s0 + t / ws;
+  const int l = t % ws;
+  const int col = (s % per_row) * ws + l;
+  const size_t blk = (size_t)(s / per_row) * nbw + col;
   // A block past cap words overflowed (the encode retries at a larger
   // cap); clamping keeps every deposit inside the segment meanwhile.
-  const int b = col < nbw ? min(bits[blk], cap * 32) : 0;
-  const int seg_words = (cap + 1) * kLanes;
-  for (int i = l; i < seg_words; i += kLanes) seg[i] = 0u;
+  const int b = (s < nseg && col < nbw) ? min(bits[blk], cap * 32) : 0;
+  const int seg_words = ws * (cap + 1);
+  for (int i = t; i < per_block * seg_words; i += blockDim.x) seg[i] = 0u;
 
-  scan[l] = b;  // inclusive Hillis-Steele scan
+  scan[t] = b;  // inclusive Hillis-Steele scan inside each segment
   __syncthreads();
-  for (int off = 1; off < kLanes; off <<= 1) {
-    const int v = l >= off ? scan[l - off] : 0;
+  for (int off = 1; off < ws; off <<= 1) {
+    const int v = l >= off ? scan[t - off] : 0;
     __syncthreads();
-    scan[l] += v;
+    scan[t] += v;
     __syncthreads();
   }
-  const int excl = scan[l] - b;
+  const int excl = scan[t] - b;
   const int r = excl & 31;
   const int nw = (b + 31) >> 5;
+  unsigned* mine = seg + (t / ws) * seg_words;
   for (int j = 0; j < nw; ++j) {
     const unsigned w = words[(size_t)j * nb + blk];
     const int idx = (excl >> 5) + j;
-    atomicOr(&seg[idx], w >> r);
-    if (r) atomicOr(&seg[idx + 1], w << (32 - r));
+    atomicOr(&mine[idx], w >> r);
+    if (r) atomicOr(&mine[idx + 1], w << (32 - r));
   }
   __syncthreads();
-  unsigned* dst = segs + (size_t)s * seg_words;
-  for (int i = l; i < seg_words; i += kLanes) dst[i] = seg[i];
-  if (l == 0) seg_bits[s] = scan[kLanes - 1];
+  const int live = min(per_block, nseg - s0);
+  unsigned* dst = segs + (size_t)s0 * seg_words;
+  for (int i = t; i < live * seg_words; i += blockDim.x) dst[i] = seg[i];
+  if (l == ws - 1 && s < nseg) seg_bits[s] = scan[t];
 }
 
-__global__ void __launch_bounds__(kStreamThreads)
-stream_concat_kernel(const unsigned* __restrict__ segs,
-                     const int* __restrict__ seg_bits,
-                     const long long* __restrict__ offs, int seg_words,
-                     unsigned* __restrict__ out, long long out_words) {
-  const int s = blockIdx.x;
-  const long long off = offs[s];
-  const long long sb = seg_bits[s];
+// Place one segment of sb bits (seg_words words, MSB first) at bit `off`
+// of a zeroed stream of out_words words.
+__device__ inline void place_segment(const unsigned* __restrict__ src,
+                                     int seg_words, long long off,
+                                     long long sb, unsigned* __restrict__ out,
+                                     long long out_words) {
   if (sb <= 0) return;
-  const unsigned* src = segs + (size_t)s * seg_words;
   const long long first = off >> 5;
   const long long n = ((off + sb - 1) >> 5) - first + 1;
   const int r = (int)(off & 31);
-  for (long long i = threadIdx.x; i < n; i += kStreamThreads) {
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
     const unsigned cur = i < seg_words ? src[i] : 0u;
     unsigned v = cur;
     if (r) {
@@ -110,12 +130,47 @@ stream_concat_kernel(const unsigned* __restrict__ segs,
   }
 }
 
+__global__ void __launch_bounds__(kStreamThreads)
+stream_concat_kernel(const unsigned* __restrict__ segs,
+                     const int* __restrict__ seg_bits,
+                     const long long* __restrict__ offs, int seg_words,
+                     unsigned* __restrict__ out, long long out_words) {
+  const int s = blockIdx.x;
+  place_segment(segs + (size_t)s * seg_words, seg_words, offs[s],
+                seg_bits[s], out, out_words);
+}
+
+__global__ void __launch_bounds__(kStreamThreads)
+stream_concat_rows_kernel(const unsigned* __restrict__ segs,
+                          const int* __restrict__ seg_bits,
+                          const long long* __restrict__ offs,
+                          const long long* __restrict__ totals,
+                          int seg_words, int segs_per_image, int pad_ones,
+                          unsigned* __restrict__ out, int slab_words) {
+  const int s = blockIdx.x;
+  const int img = s / segs_per_image;
+  unsigned* slab = out + (size_t)img * slab_words;
+  const bool last = s % segs_per_image == segs_per_image - 1;
+  if (pad_ones && threadIdx.x == 0 && last) {
+    const long long total = totals[img];
+    const int padlen = (int)((-total) & 7);
+    const long long w = total >> 5;
+    if (padlen && w < slab_words) {
+      // the pad completes the byte holding bit `total`: off + padlen <= 32
+      const int off = (int)(total & 31);
+      atomicOr(&slab[w], ((1u << padlen) - 1u) << (32 - off - padlen));
+    }
+  }
+  place_segment(segs + (size_t)s * seg_words, seg_words, offs[s],
+                seg_bits[s], slab, slab_words);
+}
+
 }  // namespace
 
-// The largest cap whose segment fits the current device's opt-in shared
-// memory per block (beside the kernel's static scan array), or -1 if the
-// device cannot be queried.
-extern "C" int jt_merge_rows_max_cap() {
+// The largest cap whose segments fit the current device's opt-in shared
+// memory per block at segment width ws (beside the kernel's static scan
+// array), or -1 if the device cannot be queried.
+extern "C" int jt_merge_rows_max_cap(int ws) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -123,23 +178,26 @@ extern "C" int jt_merge_rows_max_cap() {
     return -1;
   }
   const int seg_bytes = optin - (int)(kLanes * sizeof(int));
-  return seg_bytes / (int)(kLanes * sizeof(unsigned)) - 1;
+  return seg_bytes / (merge_threads(ws) * (int)sizeof(unsigned)) - 1;
 }
 
 extern "C" int jt_merge_rows(const unsigned* words, const int* bits, int nb,
-                             int cap, int nbh, int nbw, unsigned* segs,
+                             int cap, int nbh, int nbw, int ws, unsigned* segs,
                              int* seg_bits, cudaStream_t stream) {
-  const int nseg = nbh * ((nbw + kLanes - 1) / kLanes);
+  const int threads = merge_threads(ws);
+  const int nseg = nbh * ((nbw + ws - 1) / ws);
+  const int per_block = threads / ws;
+  const int nblocks = (nseg + per_block - 1) / per_block;
   if (nseg > 0) {
-    const size_t smem = (size_t)(cap + 1) * kLanes * sizeof(unsigned);
+    const size_t smem = (size_t)(cap + 1) * threads * sizeof(unsigned);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           merge_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    merge_rows_kernel<<<nseg, kLanes, smem, stream>>>(words, bits, nb, cap,
-                                                      nbw, segs, seg_bits);
+    merge_rows_kernel<<<nblocks, threads, smem, stream>>>(
+        words, bits, nb, cap, nbh, nbw, ws, segs, seg_bits);
   }
   return (int)cudaGetLastError();
 }
@@ -151,6 +209,21 @@ extern "C" int jt_stream_concat(const unsigned* segs, const int* seg_bits,
   if (nseg > 0) {
     stream_concat_kernel<<<nseg, kStreamThreads, 0, stream>>>(
         segs, seg_bits, offs, seg_words, out, out_words);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int jt_stream_concat_rows(const unsigned* segs,
+                                     const int* seg_bits,
+                                     const long long* offs,
+                                     const long long* totals, int nseg,
+                                     int seg_words, int segs_per_image,
+                                     int pad_ones, unsigned* out,
+                                     int slab_words, cudaStream_t stream) {
+  if (nseg > 0) {
+    stream_concat_rows_kernel<<<nseg, kStreamThreads, 0, stream>>>(
+        segs, seg_bits, offs, totals, seg_words, segs_per_image, pad_ones,
+        out, slab_words);
   }
   return (int)cudaGetLastError();
 }

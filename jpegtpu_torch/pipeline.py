@@ -212,10 +212,22 @@ def finish_scan(words: torch.Tensor, bits: torch.Tensor,
         return None
     nwords = (total_bits + 31) // 32
     words_np = stream[:nwords].cpu().numpy().view(np.uint32)
-    if native.available():
-        return native.words_to_stuffed(words_np, total_bits)
-    raw = np.frombuffer(words_np.astype(">u4").tobytes(), np.uint8)
-    return entropy_host.stuff_bytes(raw[: total_bits // 8])
+    return segments_from_streams(words_np[None], [total_bits])[0]
+
+
+def segments_from_streams(streams: np.ndarray, totals) -> list:
+    """Host finish of per-image (or per-segment) streams: words [B, W]
+    uint32 holding each stream's bits from word 0, and total bits [B]
+    (padded to the byte) -> the stuffed bytes of each stream."""
+    out = []
+    for words, total_bits in zip(streams, totals):
+        words = words[: (total_bits + 31) // 32]
+        if native.available():
+            out.append(native.words_to_stuffed(words, total_bits))
+        else:
+            raw = np.frombuffer(words.astype(">u4").tobytes(), np.uint8)
+            out.append(entropy_host.stuff_bytes(raw[: total_bits // 8]))
+    return out
 
 
 def finish_restart_scan(words: torch.Tensor, bits: torch.Tensor,

@@ -18,6 +18,8 @@ import jpegtpu_torch
 from jpegtpu_torch import color_pipeline, pipeline
 from jpegtpu_torch.ops import blocks
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 MODES = ["420", "422", "444"]
 
 

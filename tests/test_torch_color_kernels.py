@@ -20,6 +20,8 @@ from jpegtpu_torch.entropy import merge, pack
 from jpegtpu_torch.entropy.device import dc_differences, y_dc_differences
 from jpegtpu_torch.ops import color, transform
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 MODES = ["420", "422", "444"]
 FACTORS = {"420": (2, 2), "422": (1, 2), "444": (1, 1)}
 

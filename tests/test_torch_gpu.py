@@ -15,6 +15,8 @@ from jpegtpu_torch.entropy.device import (dc_differences, symbol_histograms,
                                           y_dc_differences)
 from jpegtpu_torch.ops import transform
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.gpu
 
 
@@ -234,3 +236,67 @@ def test_restart_and_two_pass_encode_match_cpu_in_int32_mode(cuda, kw):
     encode = (jpegtpu_torch.encode_grayscale if cfg.n_components == 1
               else jpegtpu_torch.encode_color)
     assert encode(img, cfg) == encode(img, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("ws", [16, 32, 64, 128])
+@pytest.mark.parametrize("cap", [8, 53])
+@pytest.mark.parametrize("nbh,nbw", [(9, 64), (5, 100), (3, 300), (1, 7)])
+def test_merge_rows_ws_matches_plain(cuda, ws, cap, nbh, nbw):
+    """K8 at every segment width: several segments per thread block, a
+    ragged last segment in a row, a row of fewer blocks than ws; overflowed
+    blocks (bits past cap * 32) included."""
+    words, bits = _streams(cuda, cap, nbh * nbw, ws + cap + nbw)
+    bits[::11] = cap * 32 + 5
+    segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw, ws)
+    s_p, sb_p = concat.merge_rows_plain(words, bits, nbh, nbw, ws)
+    assert torch.equal(seg_bits, sb_p) and torch.equal(segs, s_p)
+
+
+def test_merge_rows_ws_at_the_top_color_rung(cuda):
+    """4:2:0 MCU streams at cap 53 (E * cap = 318 words) in rows of 32
+    MCUs: 41 KB of shared memory per 32-wide block, where a 128-wide
+    segment takes 163 KB, near the card's limit."""
+    words, bits = _streams(cuda, 318, 40 * 32, 318)
+    segs, seg_bits = concat.merge_rows(words, bits, 40, 32, 32)
+    s_p, sb_p = concat.merge_rows_plain(words, bits, 40, 32, 32)
+    assert torch.equal(seg_bits, sb_p) and torch.equal(segs, s_p)
+
+
+@pytest.mark.parametrize("segs_per_image,n_images", [(1, 7), (3, 5),
+                                                     (64, 3)])
+@pytest.mark.parametrize("pad_ones", [True, False])
+def test_stream_concat_rows_matches_plain(cuda, segs_per_image, n_images,
+                                          pad_ones):
+    """K11 on K8's segments: one segment per image, several, many; empty
+    and sub-byte segments."""
+    c, ws = 8, 32
+    words, bits = _streams(cuda, c, n_images * segs_per_image * ws,
+                           segs_per_image + n_images)
+    segs, seg_bits = concat.merge_rows(words, bits, n_images * segs_per_image,
+                                       ws, ws)
+    seg_bits[::4] = 0
+    segs[::4] = 0
+    slab = segs_per_image * ws * c
+    got = concat.stream_concat_rows(segs, seg_bits, segs_per_image, slab,
+                                    pad_ones)
+    want = concat.stream_concat_rows_plain(segs, seg_bits, segs_per_image,
+                                           slab, pad_ones)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"quality": 100}, {"optimize_huffman": True},
+    {"subsampling": "420"}, {"subsampling": "422", "pad_ones": False},
+    {"subsampling": "444", "optimize_huffman": True},
+    {"subsampling": "420", "optimize_huffman": True, "quality": 100},
+])
+def test_batch_encode_matches_cpu_in_int32_mode(cuda, kw):
+    rng = np.random.default_rng(6)
+    images = [rng.integers(0, 256, (61, 93, 3), np.uint8),
+              rng.integers(0, 256, (61, 93), np.uint8),
+              rng.integers(0, 256, (16, 1030), np.uint8),
+              rng.integers(0, 256, (64, 64, 3), np.uint8)]
+    cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32", **kw)
+    encode = (jpegtpu_torch.encode_grayscale_batch if cfg.n_components == 1
+              else jpegtpu_torch.encode_color_batch)
+    assert encode(images, cfg) == encode(images, cfg, device="cpu")

@@ -28,6 +28,8 @@ from jpegtpu_torch.entropy.device import (MAX_WORDS_PER_BLOCK,
                                           dc_differences, symbol_histograms)
 from jpegtpu_torch.io import jfif
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 
 def _gray(h, w, seed=0):
     """Photographic-complexity content (tests/test_tpu_parity.py)."""

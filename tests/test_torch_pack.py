@@ -13,6 +13,8 @@ import jpegtpu_torch
 from jpegtpu_torch import tables
 from jpegtpu_torch.entropy import pack
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 HUFF = tables.encoder_state(jpegtpu_torch.EncodeConfig(), "cpu").huff
 
 

@@ -19,6 +19,8 @@ import jpegtpu_torch
 from jpegtpu_torch import pipeline, tables
 from jpegtpu_torch.entropy import host as entropy_host
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 
 def _gray(h, w, seed=0):
     """Photographic-complexity content (tests/test_tpu_parity.py)."""

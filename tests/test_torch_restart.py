@@ -27,6 +27,8 @@ from jpegtpu_torch.entropy import stitch
 from jpegtpu_torch.entropy.device import dc_differences, y_dc_differences
 from jpegtpu_torch.io import jfif
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 
 def _gray(h, w, seed=0):
     """Photographic-complexity content (tests/test_tpu_parity.py)."""

@@ -18,6 +18,8 @@ from jpegtpu.entropy import pallas_pack
 import jpegtpu_torch
 from jpegtpu_torch import tables
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

@@ -12,6 +12,8 @@ import jpegtpu_torch
 from jpegtpu_torch import tables
 from jpegtpu_torch.ops import transform
 
+from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
+
 
 def _jpegtpu_levels(img, cfg, int_mode):
     """[64, nb] levels of jpegtpu's K1, raster block order."""
