@@ -44,8 +44,9 @@ import torch
 
 from jpegtpu_torch import (EncodeConfig, _build, batch, color_pipeline,
                            native, pipeline, tables)
-from jpegtpu_torch.entropy import concat, merge, pack, stitch
+from jpegtpu_torch.entropy import concat, device, merge, pack, stitch
 from jpegtpu_torch.entropy import host as entropy_host
+from jpegtpu_torch.entropy import treepack
 from jpegtpu_torch.entropy.device import (MAX_WORDS_PER_BLOCK,
                                           assemble_histograms, dc_differences,
                                           symbol_histograms, y_dc_differences)
@@ -57,6 +58,7 @@ SIDE_H, SIDE_W = 1024, 1536  # the 4:2:2 and 4:4:4 checks
 # the reference's batch configuration (bench.py:354-416): 1024 x 512 x 512
 BATCH_N, BATCH_H, BATCH_W = 1024, 512, 512
 TOP_N = 128  # images of the top-rung K8 / K11 checks
+BIG_H, BIG_W = 4320, 7680  # the 8K frame, 33.2 MPix (bench.py:521-575)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPS = 20
@@ -117,6 +119,14 @@ def time_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def concat_label(nbh: int, nbw: int, c: int) -> str:
+    """The stage name of K8 + K9 (or K10, past jpegtpu's resident budget)
+    for an nbh x nbw grid of streams of c words."""
+    mode = concat.concat_mode(nbh, nbw, c, concat.column_groups(nbw))
+    return ("K8_K9_concat_and_tail_pad" if mode == "pallas-resident"
+            else "K8_K10_concat_and_tail_pad")
+
+
 def stage_breakdown(img, cfg, reps: int = 5) -> dict:
     """Host-clock milliseconds of each stage of one main-path encode,
     each ended by a synchronize (medians over reps)."""
@@ -142,7 +152,7 @@ def stage_breakdown(img, cfg, reps: int = 5) -> dict:
         t = mark("dc_diff_and_K4_pack", t)
         stream, total = concat.concat_stream(words, bits, nbh, nbw)
         stream, total = concat.apply_tail_padding(stream, total, cfg.pad_ones)
-        t = mark("K8_K9_concat_and_tail_pad", t)
+        t = mark(concat_label(nbh, nbw, cap), t)
         ov, total_bits = torch.stack(
             [(bits > cap * 32).any().to(torch.int64), total]).tolist()
         words_np = stream[: (total_bits + 31) // 32].cpu().numpy()
@@ -187,7 +197,7 @@ def color_stage_breakdown(img, cfg, reps: int = 5) -> dict:
         t = mark("K5_merge_mcu", t)
         stream, total = concat.concat_stream(words, bits, nmch, nmcw)
         stream, total = concat.apply_tail_padding(stream, total, cfg.pad_ones)
-        t = mark("K8_K9_concat_and_tail_pad", t)
+        t = mark(concat_label(nmch, nmcw, words.shape[0]), t)
         ov, total_bits = torch.stack(
             [(torch.cat([by, bc]) > cap * 32).any().to(torch.int64),
              total]).tolist()
@@ -1049,6 +1059,291 @@ def batch_phases(dev, say) -> list:
     say("batch_reduced_size", **reduced)
     return entries
 
+def large_frame_phases(dev, say) -> list:
+    """The 8K single frame, 7680 x 4320 (bench.py:521-575), gray and 4:2:0
+    at Q50: past jpegtpu's resident-concat budget, so the scan's concat is
+    K10. K10 against its plain version and against K9 on the same
+    segments, end to end through encode_grayscale / encode_color (K10
+    launched, K9 not), the bytes against the CPU path (gray int32) or the
+    CPU entropy chain fed the card's levels (float, and 4:2:0 int32),
+    e2e MPix/s, a stage breakdown and K10's and K9's device times; then a
+    3024 x 4032 4:2:0 Q100 noise encode whose upper rungs lie past the
+    budget. Returns the kernel entries."""
+    cpu = torch.device("cpu")
+    entries = []
+    for kind in ("gray", "420"):
+        color = kind == "420"
+        cfg = EncodeConfig(subsampling="420") if color else EncodeConfig()
+        cfg_int = dataclasses.replace(cfg, dct_dtype="int32")
+        encode = (color_pipeline.encode_color if color
+                  else pipeline.encode_grayscale)
+        cap = cfg.capacity_words_per_block
+        t0 = time.perf_counter()
+        img = (make_color_image(BIG_H, BIG_W) if color
+               else make_image(BIG_H, BIG_W))
+        made_s = time.perf_counter() - t0
+        state = tables.encoder_state(cfg, dev)
+        x = torch.from_numpy(img).to(dev)
+
+        def levels(int_mode):
+            if color:
+                return (transform.transform_rgb_y(x, state, int_mode),
+                        transform.transform_rgb_chroma(x, state, int_mode,
+                                                       "420"))
+            return (transform.transform(x, state, int_mode),)
+
+        def streams(lv):
+            """The scan's streams at cap 8: (words, bits, nbh, nbw)."""
+            if color:
+                nbh, nbw = BIG_H // 16, BIG_W // 16
+                dcd = color_pipeline.color_dc_differences(*lv, nbh, nbw,
+                                                          "420")
+                words, bits, _ = color_pipeline.mcu_streams(
+                    *lv, dcd, state, nbh, nbw, "420", cap)
+            else:
+                nbh, nbw = BIG_H // 8, BIG_W // 8
+                words, bits = pack.encode_blocks(lv[0], dc_differences(
+                    lv[0][0]), state.huff, cap)
+            return words, bits, nbh, nbw
+
+        # --- 22. K10 against its plain version and K9, 8K segments ------
+        mode = (color_pipeline.color_concat_mode(BIG_H, BIG_W, "420", cap)
+                if color else pipeline.gray_concat_mode(BIG_H, BIG_W, cap))
+        check(mode != "pallas-resident",
+              f"8K {kind}: the port's decision says K9 ({mode})")
+        lv = levels(False)
+        words, bits, nbh, nbw = streams(lv)
+        check(int(bits.max()) <= cap * 32, f"8K {kind}: overflowed cap 8")
+        segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
+        out_words = concat.stream_words(nbh * nbw, words.shape[0])
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tile = concat.chunk_tile(segs.shape[0], segs.shape[1],
+                                 concat._smem_optin(dev), sms)
+        k10 = concat.stream_concat_chunked(segs, seg_bits, out_words)
+        plain = concat.stream_concat_chunked_plain(segs, seg_bits, out_words,
+                                                   tile)
+        k9 = concat.stream_concat(segs, seg_bits, out_words)
+        result = equal_streams(f"K10 8K {kind}", (k10[0], k10[1].reshape(1)),
+                               (plain[0], plain[1].reshape(1)))
+        check(torch.equal(k10[0], k9[0]) and int(k10[1]) == int(k9[1]),
+              f"K10 8K {kind}: stream != K9's on the same segments")
+        say("large_frame_kernels_vs_plain", path=f"8k_{kind}",
+            shape=list(img.shape), concat_mode=mode, segments=int(
+                segs.shape[0]), segment_words=int(segs.shape[1]),
+            tile_segments=tile, tiles=-(-int(segs.shape[0]) // tile),
+            stream_concat_chunked=result, equal_to_k9=True,
+            image_seconds=made_s)
+
+        # --- 23. end to end through the entry point ---------------------
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        jpg = encode(img, cfg)
+        first_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        path_kernels = (("transform_rgb_y", "transform_rgb_chroma",
+                         "encode_blocks", "merge_mcu") if color
+                        else ("transform", "encode_blocks"))
+        path_kernels += ("merge_rows", "stream_concat_chunked")
+        check(all(launches[k] > 0 for k in path_kernels)
+              and launches["stream_concat"] == 0,
+              f"8K {kind}: not K10's route: {launches}")
+        check(jpg[:2] == b"\xff\xd8" and jpg[-2:] == b"\xff\xd9",
+              f"8K {kind}: output is not a JFIF stream")
+        # float: the bytes equal the CPU entropy chain fed the card's
+        # levels; int32: gray equal to the CPU path, 4:2:0 to the CPU
+        # entropy chain fed the card's int32 levels (its CPU transform
+        # would double the phase)
+        t0 = time.perf_counter()
+        cpu_state = tables.encoder_state(cfg, cpu)
+
+        def cpu_chain(lv, c):
+            if color:
+                return color_pipeline.encode_color_levels(
+                    *(t.cpu() for t in lv), cpu_state, nbh, nbw, c)
+            return pipeline.encode_levels(lv[0].cpu(), cpu_state.huff, nbh,
+                                          nbw, c)
+
+        check(pipeline.jfif.assemble(BIG_W, BIG_H, cfg,
+                                     [cpu_chain(lv, cfg)]) == jpg,
+              f"8K {kind} float: card bytes != CPU entropy chain on the "
+              "card's levels")
+        del words, bits, segs, seg_bits, k10, plain, k9, lv
+        jpg_int = encode(img, cfg_int)
+        if color:
+            lv_int = levels(True)
+            want_int = pipeline.jfif.assemble(
+                BIG_W, BIG_H, cfg_int, [cpu_chain(lv_int, cfg_int)])
+            del lv_int
+            int_check = "cpu_entropy_chain_on_card_int32_levels"
+        else:
+            want_int = encode(img, cfg_int, device="cpu")
+            int_check = "cpu_path"
+        check(jpg_int == want_int, f"8K {kind} int32: card bytes != "
+              f"{int_check}")
+        cpu_s = time.perf_counter() - t0
+        e2e_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            encode(img, cfg)
+            e2e_s.append(time.perf_counter() - t0)
+        e2e_med = float(np.median(e2e_s))
+        say("end_to_end", path=f"8k_{kind}", shape=list(img.shape),
+            quality=cfg.quality, bytes=len(jpg), bytes_int32=len(jpg_int),
+            int32_held_against=int_check, cpu_checks_s=cpu_s,
+            first_call_s=first_s, median_s=e2e_med, runs_s=e2e_s,
+            mpix_per_s=BIG_H * BIG_W / 1e6 / e2e_med, launches=launches)
+        say("stage_breakdown_ms", path=f"8k_{kind}", shape=list(img.shape),
+            **(color_stage_breakdown(img, cfg) if color
+               else stage_breakdown(img, cfg)))
+
+        # --- 24. K10 and K9 at 8K, device ms and bounds ------------------
+        lv = levels(False)
+        words, bits, nbh, nbw = streams(lv)
+        segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
+        k10_total = int(concat.stream_concat_chunked(segs, seg_bits,
+                                                     out_words)[1])
+        valid_seg_words = int(((seg_bits.long() + 31) // 32).sum())
+        nbytes = (valid_seg_words * 4 + segs.shape[0] * 12
+                  + (k10_total + 31) // 32 * 4)
+        spec = ("stream_concat_chunked", "jpegtpu_torch/csrc/concat.cu",
+                "jpegtpu/entropy/pallas_concat.py:762",
+                lambda: concat.stream_concat_chunked(segs, seg_bits,
+                                                     out_words),
+                lambda: concat.stream_concat_chunked_plain(
+                    segs, seg_bits, out_words, tile),
+                nbytes, valid_seg_words * 2)
+        entries += time_kernels([spec], launches,
+                                {"stream_concat_chunked": result},
+                                f"8k_{kind}", list(img.shape), say)
+        # K9 and K10 on the same segments, in turns
+        turns = [("K9", lambda: concat.stream_concat(segs, seg_bits,
+                                                     out_words)),
+                 ("K10", lambda: concat.stream_concat_chunked(
+                     segs, seg_bits, out_words))]
+        times = {}
+        for name, fn in turns + turns[::-1]:
+            times.setdefault(name, []).append(time_ms(fn))
+        say("k9_vs_k10", path=f"8k_{kind}", shape=list(img.shape),
+            k9_ms=times["K9"], k10_ms=times["K10"],
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, tile_segments=tile)
+        del x, lv, words, bits, segs, seg_bits
+        torch.cuda.empty_cache()
+
+    # --- 25. below 8K: a 4:2:0 ladder whose upper rungs are chunked ------
+    noise = np.random.default_rng(7).integers(0, 256, (H, W, 3),
+                                              dtype=np.uint8)
+    cfg = EncodeConfig(quality=100, dct_dtype="int32", subsampling="420")
+    modes = [color_pipeline.color_concat_mode(H, W, "420", c)
+             for c in (8, 16, MAX_WORDS_PER_BLOCK)]
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    jpg = color_pipeline.encode_color(noise, cfg)
+    launches = dict(_build.LAUNCHES)
+    check(launches["merge_mcu"] == 3 and launches["stream_concat"] == 1
+          and launches["stream_concat_chunked"] == 2,
+          f"3024 x 4032 4:2:0 Q100 ladder: {launches} for modes {modes}")
+    t0 = time.perf_counter()
+    check(jpg == color_pipeline.encode_color(noise, cfg, device="cpu"),
+          "3024 x 4032 4:2:0 Q100 ladder: card bytes != CPU bytes")
+    say("chunked_ladder", path="420_q100_noise", shape=[H, W, 3],
+        concat_modes=modes, launches=launches, bytes=len(jpg),
+        cpu_path_s=time.perf_counter() - t0)
+    return entries
+
+
+def staged_entropy_phases(dev, say) -> list:
+    """jpegtpu's levels -> scan entry point, encode_scan_device, on the
+    3024 x 4032 gray levels of the card: the staged branch (fused=False:
+    symbolize, fuse, K7) against the fused one (K4), K7 against its plain
+    version at caps 8, 16 and 53, a 4:2:0 interleaved scan with a table
+    array and no DC differences (the staged branch) against the CPU twin,
+    and K7's device time. Returns the kernel entries."""
+    cfg = EncodeConfig()
+    state = tables.encoder_state(cfg, dev)
+    lv = transform.transform(torch.from_numpy(make_image(H, W)).to(dev),
+                             state, False)
+    zz = lv.T.contiguous()
+    nb = zz.shape[0]
+    cap = cfg.capacity_words_per_block
+
+    # --- 26. staged against fused, launches -----------------------------
+    runs, launches = {}, {}
+    for name, fused in (("fused", True), ("staged", False)):
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        runs[name] = device.encode_scan_device(
+            zz, capacity_words=nb * cap, stuff=False, fused=fused)
+        launches[name] = dict(_build.LAUNCHES)
+    check(launches["staged"]["pack_blocks"] == 1
+          and launches["staged"]["encode_blocks"] == 0
+          and launches["fused"]["encode_blocks"] == 1
+          and launches["fused"]["pack_blocks"] == 0,
+          f"encode_scan_device: wrong kernels {launches}")
+    (ws, ts, os_), (wf, tf, of) = runs["staged"], runs["fused"]
+    check(not bool(os_) and not bool(of) and int(ts) == int(tf)
+          and torch.equal(ws, wf),
+          "encode_scan_device: staged words/total != fused")
+    stuffed = device.encode_scan_device(zz, capacity_words=nb * cap,
+                                        fused=False)
+    scan = pipeline.encode_levels(lv, state.huff, H // 8, W // 8, cfg)
+    check(bytes(stuffed[0][:int(stuffed[1])].cpu().numpy()) == scan,
+          "encode_scan_device stuffed != the gray encode's scan")
+    # stuff=True stays on the card: stuff_bytes_device, plain torch
+    stuff_ms = time_ms(lambda: device.stuff_bytes_device(wf, tf))
+
+    # --- 27. K7 against its plain version at caps 8, 16, 53 --------------
+    values, lengths = device.symbolize_elements64(zz)
+    words_t, bits_t = treepack._fuse_subslots(values, lengths, 3)
+    del values, lengths
+    k7 = {}
+    for c in (8, 16, MAX_WORDS_PER_BLOCK):
+        got = pack.pack_blocks(words_t, bits_t, c)
+        want = pack.pack_blocks_plain(words_t, bits_t, c)
+        check(bool(got[2]) == bool(want[2]),
+              f"K7 cap {c}: overflow flags differ")
+        k7[f"cap{c}"] = {**equal_streams(f"K7 cap {c}", got[:2], want[:2]),
+                         "overflow": bool(got[2])}
+
+    # --- 28. 4:2:0 interleaved scan, table array, no DC differences ------
+    side = make_color_image(SIDE_H, SIDE_W)
+    cfg_c = EncodeConfig(subsampling="420")
+    zc, sel, _ = color_pipeline.color_coefficients(side, cfg_c)
+    zc_dev = torch.from_numpy(zc).to(dev)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    got = device.encode_scan_device(zc_dev, table_sel=sel,
+                                    capacity_words=zc.shape[0] * cap)
+    interleaved = dict(_build.LAUNCHES)
+    want = device.encode_scan_device(torch.from_numpy(zc), table_sel=sel,
+                                     capacity_words=zc.shape[0] * cap)
+    check(interleaved["pack_blocks"] == 1
+          and interleaved["encode_blocks"] == 0,
+          f"4:2:0 interleaved scan: not the staged branch: {interleaved}")
+    check(not bool(got[2]) and int(got[1]) == int(want[1])
+          and torch.equal(got[0].cpu(), want[0]),
+          "4:2:0 interleaved staged scan: card bytes != CPU twin's")
+    say("staged_entropy", shape=[H, W], blocks=nb, cap=cap,
+        total_bits=int(tf), launches=launches, k7_vs_plain=k7,
+        stuff_bytes_device_ms=stuff_ms, stream_words=int(wf.shape[0]),
+        interleaved_420={"shape": [SIDE_H, SIDE_W, 3], "slots": int(
+            zc.shape[0]), "nbytes": int(got[1]), "launches": interleaved})
+
+    # --- 29. K7 device time and bound, cap 8 ----------------------------
+    # bytes the function needs: every element's bit count, the words that
+    # hold a non-empty element's bits (the kernel reads no others), and
+    # the [cap, nb] words + [nb] bits out
+    elem_words = int(((bits_t.to(torch.int64) + 31) // 32).sum())
+    spec = ("pack_blocks", "jpegtpu_torch/csrc/pack.cu",
+            "jpegtpu/entropy/pallas_pack.py:948",
+            lambda: pack.pack_blocks(words_t, bits_t, cap),
+            lambda: pack.pack_blocks_plain(words_t, bits_t, cap),
+            64 * nb * 4 + 4 * elem_words + cap * nb * 4 + nb * 4,
+            64 * nb * 10)
+    return time_kernels([spec], launches["staged"],
+                        {"pack_blocks": k7[f"cap{cap}"]}, "staged_gray",
+                        [H, W], say)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1219,6 +1514,8 @@ def main() -> int:
     kernels += color_phases(dev, say)
     kernels += restart_and_two_pass_phases(dev, say)
     kernels += batch_phases(dev, say)
+    kernels += large_frame_phases(dev, say)
+    kernels += staged_entropy_phases(dev, say)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

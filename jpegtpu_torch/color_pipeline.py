@@ -13,7 +13,8 @@ interleaved RGB (ops.transform) -> DC differences (luma along the scan's
 luma chain, Cb and Cr each along the MCU raster) -> K4 twice, with the
 luminance and the chrominance table (entropy.pack) -> K5 per-MCU
 interleave (entropy.merge) -> K8 + K9 over the MCU streams
-(entropy.concat) -> tail padding. The host reads (overflow, total bits),
+(entropy.concat; K10 in place of K9 past jpegtpu's resident budget,
+color_concat_mode) -> tail padding. The host reads (overflow, total bits),
 then the valid word prefix, and stuffs it. An overflow retries the
 entropy chain at the next rung of the capacity ladder; the transforms run
 once. Every rung runs the same kernels (jpegtpu leaves its Pallas chain
@@ -35,6 +36,7 @@ import torch
 
 from . import tables
 from .config import EncodeConfig
+from .entropy.concat import column_groups, concat_mode
 from .entropy.device import (dc_differences, symbol_histograms,
                              y_dc_differences)
 from .entropy.merge import mcu_luma_blocks, merge_mcu
@@ -65,6 +67,18 @@ def _scan_layout(ph: int, pw: int, subsampling: str):
     kind = np.array([0] * (fy * fx) + [1, 2])
     return (slots.astype(np.int64), np.tile(np.minimum(kind, 1), nmcu)
             .astype(np.int32), np.tile(kind, nmcu).astype(np.int64))
+
+
+def color_concat_mode(ph: int, pw: int, subsampling: str, cap: int) -> str:
+    """jpegtpu's concat mode for a color frame padded to the MCU, ph x pw,
+    at `cap` words per block: concat_mode of the MCU grid at the MCU
+    streams' E * cap words, as its color body asks it
+    (jpegtpu.color_pipeline._color_encode_body_raw). K9 serves
+    "pallas-resident", K10 the other modes."""
+    fy, fx = sampling_factors(subsampling)
+    nmch, nmcw = ph // (8 * fy), pw // (8 * fx)
+    return concat_mode(nmch, nmcw, slots_per_mcu(subsampling) * cap,
+                       column_groups(nmcw))
 
 
 def component_levels(image: np.ndarray, config: EncodeConfig,

@@ -1,12 +1,15 @@
-// K8 + K9 + K11: per-block bit streams -> one scan-order stream, or one
-// stream per image of a batch.
+// K8 + K9 + K10 + K11: per-block bit streams -> one scan-order stream, or
+// one stream per image of a batch.
 //
 // Kernel A (merge_rows) replaces jpegtpu/entropy/pallas_concat.py:
 // merge_sublanes_pallas (_merge_kernel / _merge_kernel_skew, every ws).
 // Kernel B (stream_concat) replaces pallas_concat.py: stream_concat_pallas
-// (_stream_kernel). Kernel C (stream_concat_rows) replaces pallas_concat.py:
-// _stream_concat_rows (_stream_rows_kernel, via concat_segments_pallas) and
-// the tail padding after it (treepack.apply_tail_padding_segments).
+// (_stream_kernel). Kernel D (stream_concat_chunked) replaces
+// pallas_concat.py: stream_concat_chunked (_stream_chunked_kernel) and the
+// OR-combine of its chunks in concat_raw_chunked. Kernel C
+// (stream_concat_rows) replaces pallas_concat.py: _stream_concat_rows
+// (_stream_rows_kernel, via concat_segments_pallas) and the tail padding
+// after it (treepack.apply_tail_padding_segments).
 //
 // A row segment is up to ws consecutive blocks of one block row (ws a power
 // of two, 16..128): segment (br, c) holds blocks br * nbw + c * ws + l,
@@ -34,8 +37,21 @@
 //   from two neighbouring segment words (funnel shift) and plain-stores it
 //   when all its 32 bits are this segment's, atomicOr's it into the zeroed
 //   output when it shares the word with a neighbouring segment (the first
-//   and last word). Device memory has no VMEM budget, so one kernel serves
-//   every image size (the TPU's chunked K10 is not needed for size).
+//   and last word). The scan's wrapper runs B where jpegtpu's stream
+//   buffer is VMEM-resident (its concat_mode), D everywhere else.
+// - D: one thread block per tile of T consecutive segments. The TPU's
+//   chunks are worst-case-sized VMEM blocks that an XLA epilogue ORs
+//   together; here a tile's worst case (T full segments plus one word of
+//   bit residue) must fit the block's dynamic shared memory (opt-in past
+//   48 KB; the wrapper sizes T, and refuses a segment that alone does not
+//   fit). The block zeroes the words its tile actually covers, from the
+//   word floor of its first segment's offset to its last segment's end,
+//   places each segment there with B's funnel shift (plain stores inside a
+//   segment, shared atomicOr on the two words it shares with neighbours),
+//   and writes the window out coalesced: plain stores inside, global
+//   atomicOr on its first and last word, which neighbouring tiles share.
+//   So global memory sees each stream word once, and one launch does what
+//   the TPU does in a kernel and an epilogue.
 // - C: B's body with each segment placed in its own image's slab at its
 //   offset inside the image (one flat int64 scan in the wrapper, minus the
 //   image's base), so images never share a word; the thread that handles
@@ -103,6 +119,16 @@ merge_rows_kernel(const unsigned* __restrict__ words,
   if (l == ws - 1 && s < nseg) seg_bits[s] = scan[t];
 }
 
+// Word i of a segment (seg_words words, MSB first) placed at bit residue
+// r in [0, 31]: the funnel shift of its words i - 1 and i.
+__device__ inline unsigned shifted_word(const unsigned* __restrict__ src,
+                                        int seg_words, long long i, int r) {
+  const unsigned cur = i < seg_words ? src[i] : 0u;
+  if (!r) return cur;
+  const unsigned prev = (i > 0 && i <= seg_words) ? src[i - 1] : 0u;
+  return (cur >> r) | (prev << (32 - r));
+}
+
 // Place one segment of sb bits (seg_words words, MSB first) at bit `off`
 // of a zeroed stream of out_words words.
 __device__ inline void place_segment(const unsigned* __restrict__ src,
@@ -114,12 +140,7 @@ __device__ inline void place_segment(const unsigned* __restrict__ src,
   const long long n = ((off + sb - 1) >> 5) - first + 1;
   const int r = (int)(off & 31);
   for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-    const unsigned cur = i < seg_words ? src[i] : 0u;
-    unsigned v = cur;
-    if (r) {
-      const unsigned prev = (i > 0 && i <= seg_words) ? src[i - 1] : 0u;
-      v = (cur >> r) | (prev << (32 - r));
-    }
+    const unsigned v = shifted_word(src, seg_words, i, r);
     const long long d = first + i;
     if (d >= out_words) break;
     if (d * 32 >= off && d * 32 + 32 <= off + sb) {
@@ -138,6 +159,56 @@ stream_concat_kernel(const unsigned* __restrict__ segs,
   const int s = blockIdx.x;
   place_segment(segs + (size_t)s * seg_words, seg_words, offs[s],
                 seg_bits[s], out, out_words);
+}
+
+__global__ void __launch_bounds__(kStreamThreads)
+stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
+                             const int* __restrict__ seg_bits,
+                             const long long* __restrict__ offs, int nseg,
+                             int seg_words, int tile, int window,
+                             unsigned* __restrict__ out,
+                             long long out_words) {
+  extern __shared__ unsigned win[];  // window words, from word `base`
+  const int s0 = blockIdx.x * tile;
+  const int s1 = min(s0 + tile, nseg);
+  const long long start = offs[s0];
+  const long long end = offs[s1 - 1] + seg_bits[s1 - 1];
+  if (end <= start) return;  // every segment of the tile is empty
+  const long long base = start >> 5;
+  // words the tile covers; <= window for segments of <= seg_words * 32
+  // bits, and never more are touched
+  const int n = (int)min(((end - 1) >> 5) - base + 1, (long long)window);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) win[i] = 0u;
+  __syncthreads();
+  for (int s = s0; s < s1; ++s) {
+    const long long sb = seg_bits[s];
+    if (sb <= 0) continue;
+    const long long off = offs[s] - base * 32;  // bit offset in the window
+    const int first = (int)(off >> 5);
+    const int cnt = (int)(((off + sb - 1) >> 5) - first + 1);
+    const int r = (int)(off & 31);
+    const unsigned* src = segs + (size_t)s * seg_words;
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+      const int d = first + i;
+      if (d >= n) break;
+      const unsigned v = shifted_word(src, seg_words, i, r);
+      if (i > 0 && i < cnt - 1) {
+        win[d] = v;  // all 32 bits are this segment's
+      } else {
+        atomicOr(&win[d], v);  // shared with the neighbouring segment
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const long long d = base + i;
+    if (d >= out_words) break;
+    if (i > 0 && i < n - 1) {
+      out[d] = win[i];
+    } else {
+      atomicOr(&out[d], win[i]);  // shared with the neighbouring tile
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kStreamThreads)
@@ -209,6 +280,42 @@ extern "C" int jt_stream_concat(const unsigned* segs, const int* seg_bits,
   if (nseg > 0) {
     stream_concat_kernel<<<nseg, kStreamThreads, 0, stream>>>(
         segs, seg_bits, offs, seg_words, out, out_words);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The current device's opt-in shared memory per block, in bytes, or -1 if
+// the device cannot be queried.
+extern "C" int jt_smem_optin() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return -1;
+  }
+  return optin;
+}
+
+// Tiles of `tile` segments; the wrapper checked that tile * seg_words + 1
+// words fit the device's opt-in shared memory.
+extern "C" int jt_stream_concat_chunked(const unsigned* segs,
+                                        const int* seg_bits,
+                                        const long long* offs, int nseg,
+                                        int seg_words, int tile,
+                                        unsigned* out, long long out_words,
+                                        cudaStream_t stream) {
+  if (nseg > 0 && tile > 0) {
+    const int window = tile * seg_words + 1;
+    const size_t smem = (size_t)window * sizeof(unsigned);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          stream_concat_chunked_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    stream_concat_chunked_kernel<<<(nseg + tile - 1) / tile, kStreamThreads,
+                                   smem, stream>>>(
+        segs, seg_bits, offs, nseg, seg_words, tile, window, out, out_words);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K4: fused symbolize + Huffman pack, one thread per 8x8 block.
+// K4: fused symbolize + Huffman pack, one thread per 8x8 block; and K7:
+// the pack of pre-fused elements, one thread per block.
 //
 // Replaces jpegtpu/entropy/pallas_pack.py: encode_blocks_pallas, both its
 // bodies: _encode_kernel (a static Annex-K table class) and
@@ -34,6 +35,27 @@
 // loads of one coefficient are one 128-byte line, and words are stored
 // word-major ([cap, nb]) for the same reason. Latency hiding comes from
 // the ~190k independent threads of a 12 MPix image, nothing more yet.
+
+// K7 (pack_blocks) replaces jpegtpu/entropy/pallas_pack.py:
+// pack_blocks_pallas (_pack_kernel), the packer of jpegtpu's staged entropy
+// path (entropy/device.py encode_scan_device with fused=False): symbolize
+// into 5 sub-slots per element, fuse them into elements of 3 words
+// (<= 96 bits), then pack each block's E = 64 elements. It is K4's
+// accumulator loop with the Huffman lookup already done: each thread walks
+// its block's elements in order, funnel-shifts each into a 4-word (128-bit)
+// accumulator at the residue (< 32 bits) left by the last, and retires up
+// to 3 full words per element into word j * nb + b ([cap, nb], so a warp's
+// stores of word j are one coalesced line). Words past cap are counted but
+// never stored, words past the block's bits are stored as zero, and the
+// bit count is the full one, so bits > cap * 32 flags overflow as on the
+// TPU. The TPU kernel keeps its frame in vregs and selects the word slot
+// by compare (no dynamic register index); here the store goes straight to
+// its slot.
+//
+// Bound: bytes. 4 x 4 bytes of elements in per element slot, cap + 1
+// words out per block; no lookup, ~10 integer operations per element.
+// Reads are [3, E, nb] with nb minor, so a warp's loads of one element
+// word are one 128-byte line.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -126,7 +148,68 @@ encode_blocks_kernel(const int* __restrict__ levels,
   bits[b] = w.widx * 32 + w.nacc;
 }
 
+__global__ void __launch_bounds__(kThreads)
+pack_blocks_kernel(const unsigned* __restrict__ elems,
+                   const int* __restrict__ elem_bits, int n_elem, int nb,
+                   int cap, unsigned* __restrict__ words,
+                   int* __restrict__ bits) {
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= nb) return;
+  const size_t plane = (size_t)n_elem * nb;  // one element word's plane
+  unsigned a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;  // MSB-aligned pending bits
+  int cnt = 0;   // pending bit count, < 32 between elements
+  int widx = 0;  // words retired (counted past cap too)
+  for (int e = 0; e < n_elem; ++e) {
+    const size_t i = (size_t)e * nb + b;
+    const int len = elem_bits[i];
+    if (len <= 0) continue;
+    // an element's words are zero past its bits: read only those it uses
+    const unsigned w0 = elems[i];
+    const unsigned w1 = len > 32 ? elems[plane + i] : 0u;
+    const unsigned w2 = len > 64 ? elems[2 * plane + i] : 0u;
+    if (cnt) {
+      const int t = 32 - cnt;
+      a0 |= w0 >> cnt;
+      a1 |= (w1 >> cnt) | (w0 << t);
+      a2 |= (w2 >> cnt) | (w1 << t);
+      a3 |= w2 << t;
+    } else {
+      a0 |= w0;
+      a1 |= w1;
+      a2 |= w2;
+    }
+    cnt += len;
+    while (cnt >= 32) {  // at most 3 words: cnt < 32 + 96
+      if (widx < cap) words[(size_t)widx * nb + b] = a0;
+      ++widx;
+      a0 = a1;
+      a1 = a2;
+      a2 = a3;
+      a3 = 0u;
+      cnt -= 32;
+    }
+  }
+  int next = widx;
+  if (cnt > 0) {  // flush the partial word (zeros below the residue)
+    if (next < cap) words[(size_t)next * nb + b] = a0;
+    ++next;
+  }
+  for (int j = next; j < cap; ++j) words[(size_t)j * nb + b] = 0u;
+  bits[b] = widx * 32 + cnt;
+}
+
 }  // namespace
+
+extern "C" int jt_pack_blocks(const unsigned* elems, const int* elem_bits,
+                              int n_elem, int nb, int cap, unsigned* words,
+                              int* bits, cudaStream_t stream) {
+  if (nb > 0) {
+    pack_blocks_kernel<<<(nb + kThreads - 1) / kThreads, kThreads, 0,
+                         stream>>>(elems, elem_bits, n_elem, nb, cap, words,
+                                   bits);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int jt_encode_blocks(const int* levels, const int* dc_diff,
                                 const int* huff, int nb, int cap,

@@ -1,9 +1,11 @@
-"""K8 + K9 + K11: per-block streams -> one scan-order stream, or one
-stream per image of a batch (counterpart of
+"""K8 + K9 + K10 + K11: per-block streams -> one scan-order stream, or
+one stream per image of a batch (counterpart of
 `jpegtpu/entropy/pallas_concat.py`: merge_sublanes_pallas,
-stream_concat_pallas, concat_raw_pallas, _stream_concat_rows and
-concat_segments_pallas; and of `jpegtpu/entropy/treepack.py`:
-_apply_tail_padding and apply_tail_padding_segments).
+stream_concat_pallas, concat_raw_pallas, stream_concat_chunked,
+concat_raw_chunked, _stream_concat_rows, concat_segments_pallas, and the
+concat decision fits_vmem / chunk_plan / concat_mode; and of
+`jpegtpu/entropy/treepack.py`: _apply_tail_padding and
+apply_tail_padding_segments).
 
 A row segment holds up to ws consecutive blocks of one block row (ws a
 power of two, 16..128; 128 for the single-image scan): segment (br, c) is
@@ -12,6 +14,17 @@ ceil(nbw / ws) segments and the last is ragged when nbw % ws != 0 (its
 pad lanes contribute nothing). Segments run in scan order (br, c), each
 ws * (cap + 1) words, as jpegtpu's row segments are (cap + 1) * 128 words
 at ws = 128. Words travel as int32 bit patterns (see entropy.pack).
+
+A single scan's segments become one stream by K9 or K10, split as
+jpegtpu splits its twins: where jpegtpu's stream buffer fits its VMEM
+budget (`concat_mode` "pallas-resident") K9 places every segment on its
+own (one thread block per segment, global atomics at its two edge
+words); everywhere else K10 joins tiles of consecutive segments in
+shared memory first (one thread block per tile, one coalesced write of
+the tile's words, global atomics only at the tile's two edge words). The
+TPU's K10 cuts the stream into worst-case-sized VMEM chunks that an XLA
+epilogue ORs together; the card's tiles are sized by shared memory and
+the OR happens in the same launch. Both write the same stream.
 
 A batch stacks its images vertically, so image i owns a run of whole
 block rows and so a run of segments; K11 lays each image's segments back
@@ -28,7 +41,15 @@ from .. import _build
 from .pack import deposit, to_int32
 
 LANES = 128
+SUBLANES = 8
 SEGMENT_WIDTHS = (16, 32, 64, 128)
+# jpegtpu's VMEM budget for the resident stream buffer
+# (pallas_concat.fits_vmem, chunk_plan). It decides where K9 or K10 runs;
+# nothing on the card is sized by it.
+VMEM_BUDGET = 14 << 20
+# Segments per chunk of K10's plain version on CPU tensors; its stream
+# does not depend on the chunk size.
+PLAIN_TILE = 16
 
 
 def _segments(nbh: int, nbw: int, ws: int) -> int:
@@ -140,6 +161,140 @@ def stream_concat_plain(segs: torch.Tensor, seg_bits: torch.Tensor,
     return to_int32(out[0]), inc[-1]
 
 
+def tile_limit(seg_words: int, smem_bytes: int) -> int:
+    """The most segments of seg_words words whose worst-case K10 window
+    (every segment's words full, plus one word for the first segment's
+    bit residue) fits smem_bytes of shared memory; 0 if not even one."""
+    return max(0, (smem_bytes // 4 - 1) // seg_words)
+
+
+def chunk_tile(nseg: int, seg_words: int, smem_bytes: int, sms: int) -> int:
+    """Segments per K10 tile: tile_limit, but no more than spreads the
+    segments over two tiles per SM."""
+    return min(tile_limit(seg_words, smem_bytes), -(-nseg // (2 * sms)))
+
+
+def stream_concat_chunked(segs: torch.Tensor, seg_bits: torch.Tensor,
+                          out_words: int):
+    """K10: the contract of stream_concat (segments [S, SW] int32 from K8
+    + bit counts [S] -> (stream [out_words] int32, total bits, a 0-dim
+    int64 tensor)), joined in tiles of `chunk_tile` consecutive segments
+    for this card. A segment holds at most SW * 32 bits, as K8's do.
+
+    On CUDA tensors this launches csrc/concat.cu (stream_concat_chunked)
+    into a zeroed output: each thread block assembles one tile's window in
+    shared memory and writes it out once. It raises if one segment's
+    window does not fit the card's shared memory (SW past about 58,000
+    words, a cap past 452 at ws = 128). On CPU tensors it runs
+    `stream_concat_chunked_plain` in chunks of PLAIN_TILE segments."""
+    nseg, sw = segs.shape
+    if seg_bits.shape != (nseg,):
+        raise ValueError(f"segs {tuple(segs.shape)} / seg_bits "
+                         f"{tuple(seg_bits.shape)} do not match")
+    if segs.device.type == "cpu":
+        return stream_concat_chunked_plain(segs, seg_bits, out_words,
+                                           PLAIN_TILE)
+    _build.require_cuda(segs, "segs", torch.int32)
+    _build.require_cuda(seg_bits, "seg_bits", torch.int32)
+    smem = _smem_optin(segs.device)
+    sms = torch.cuda.get_device_properties(segs.device).multi_processor_count
+    tile = chunk_tile(nseg, sw, smem, sms)
+    if tile < 1:
+        raise ValueError(
+            f"stream_concat_chunked: one segment of {sw} words needs "
+            f"{(sw + 1) * 4} B of shared memory; this card holds {smem} B "
+            f"per block")
+    inc = torch.cumsum(seg_bits, 0, dtype=torch.int64)
+    offs = inc - seg_bits
+    out = torch.zeros((out_words,), dtype=torch.int32, device=segs.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch(
+        "concat", "stream_concat_chunked",
+        (P, P, P, I, I, I, P, ctypes.c_longlong),
+        segs.data_ptr(), seg_bits.data_ptr(), offs.data_ptr(), nseg, sw,
+        tile, out.data_ptr(), out_words, device=segs.device,
+    )
+    return out, inc[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(device: torch.device) -> int:
+    with torch.cuda.device(device):
+        return _build.query("concat", "smem_optin", ())
+
+
+def stream_concat_chunked_plain(segs: torch.Tensor, seg_bits: torch.Tensor,
+                                out_words: int, tile: int):
+    """Plain PyTorch K10 (any device), the function of jpegtpu's
+    concat_raw_chunked: the segments in chunks of `tile`; each chunk's
+    stream based at the 128-word row floor of its first segment's offset;
+    the chunk streams OR-combined at their base words (their bits are
+    disjoint, so the OR is a sum)."""
+    nseg, sw = segs.shape
+    dev = segs.device
+    inc = torch.cumsum(seg_bits, 0, dtype=torch.int64)
+    offs = inc - seg_bits
+    n_chunks = -(-nseg // tile)
+    pad = n_chunks * tile - nseg
+    vals = torch.nn.functional.pad(segs.to(torch.int64) & 0xFFFFFFFF,
+                                   (0, 0, 0, pad))
+    offs = torch.cat([offs, inc[-1:].expand(pad)]).reshape(n_chunks, tile)
+    base = (offs[:, 0] >> 12) * LANES  # words
+    chunk_words = tile * sw + 2 * LANES
+    woffs = (offs - 32 * base[:, None])[..., None] + 32 * torch.arange(
+        sw, device=dev)
+    chunks = deposit(vals.reshape(n_chunks, -1),
+                     torch.full_like(woffs, 32).reshape(n_chunks, -1),
+                     woffs.reshape(n_chunks, -1), chunk_words)
+    flat = torch.zeros(out_words + chunk_words, dtype=torch.int64, device=dev)
+    idx = base[:, None] + torch.arange(chunk_words, device=dev)
+    flat.index_add_(0, idx.reshape(-1), chunks.reshape(-1))
+    return to_int32(flat[:out_words]), inc[-1]
+
+
+def fits_vmem(nbh: int, nbw: int, cap: int, ncg: int,
+              budget: int | None = None) -> bool:
+    """jpegtpu's test (pallas_concat.fits_vmem): whether the resident
+    stream buffer of an nbh x nbw grid of streams of cap words (ncg
+    column groups of 128) plus two steps of row segments fits `budget`
+    (None: VMEM_BUDGET)."""
+    budget = VMEM_BUDGET if budget is None else budget
+    sr = cap + 1
+    out_rows = -(-(nbh * nbw * cap) // LANES) + sr + 3
+    step_bytes = ncg * SUBLANES * sr * LANES * 4
+    return out_rows * LANES * 4 + 2 * step_bytes <= budget
+
+
+def chunk_plan(cap: int, ncg: int, budget: int | None = None) -> int:
+    """jpegtpu's chunk size (pallas_concat.chunk_plan): row groups per
+    worst-case VMEM chunk, 0 when even one does not fit (its tree
+    fallback). K10 on the card sizes its tiles by shared memory instead
+    (`chunk_tile`); this only names jpegtpu's mode."""
+    budget = VMEM_BUDGET if budget is None else budget
+    sr = cap + 1
+    step_bytes = ncg * SUBLANES * sr * LANES * 4
+    avail = budget - 2 * step_bytes
+    rows_per_rg = SUBLANES * ncg * cap
+    return max((avail // (LANES * 4) - (sr + 4)) // rows_per_rg, 0)
+
+
+def concat_mode(nbh: int, nbw: int, cap: int, ncg: int) -> str:
+    """jpegtpu's concat for this geometry (pallas_concat.concat_mode):
+    "pallas-resident", "pallas-chunked" or "treepack-fallback". The port
+    runs K9 for the first and K10 for the other two."""
+    if fits_vmem(nbh, nbw, cap, ncg):
+        return "pallas-resident"
+    if chunk_plan(cap, ncg) >= 1:
+        return "pallas-chunked"
+    return "treepack-fallback"
+
+
+def column_groups(nbw: int) -> int:
+    """jpegtpu's ncg for a grid nbw streams wide: 128-stream column groups
+    (its transform tiles are 1024 pixels, 128 blocks, wide)."""
+    return -(-nbw // LANES)
+
+
 def image_offsets(seg_bits: torch.Tensor, segs_per_image: int):
     """Plain torch prefix sums shared by K11 and its plain version:
     seg_bits [S] -> (each segment's bit offset inside its image [S] int64,
@@ -220,11 +375,15 @@ def stream_words(nb: int, cap: int) -> int:
 
 def concat_stream(words: torch.Tensor, bits: torch.Tensor, nbh: int,
                   nbw: int):
-    """Per-block streams [cap, nb] + bits [nb] -> (scan stream int32,
-    total bits 0-dim int64): K8 then K9."""
+    """Per-block streams [cap, nb] + bits [nb] of an nbh x nbw grid in scan
+    order -> (scan stream int32, total bits 0-dim int64): K8, then K9
+    where the grid's concat_mode is "pallas-resident", else K10."""
     cap, nb = words.shape
     segs, seg_bits = merge_rows(words, bits, nbh, nbw)
-    return stream_concat(segs, seg_bits, stream_words(nb, cap))
+    resident = concat_mode(nbh, nbw, cap, column_groups(nbw)) == (
+        "pallas-resident")
+    join = stream_concat if resident else stream_concat_chunked
+    return join(segs, seg_bits, stream_words(nb, cap))
 
 
 def concat_segments(words: torch.Tensor, bits: torch.Tensor, nbh: int,

@@ -1,6 +1,7 @@
 """K4: fused symbolize + Huffman pack (counterpart of
 `jpegtpu/entropy/pallas_pack.py: encode_blocks_pallas`, static and
-runtime tables).
+runtime tables), and K7: the pack of pre-fused elements (counterpart of
+`pallas_pack.py: pack_blocks_pallas`, the staged entropy path's packer).
 
 Levels [64, nb] int32 (coefficient-major, raster block order), DC
 differences [nb] and a [192] table (tables.huffman_table: Annex K, or
@@ -143,3 +144,49 @@ def encode_blocks_plain(levels: torch.Tensor, dc_diff: torch.Tensor,
     words = deposit(vals, lens, offs, cap)
     bits = lens.sum(dim=1)
     return to_int32(words.T.contiguous()), bits.to(torch.int32)
+
+
+def pack_blocks(words_t: torch.Tensor, bits_t: torch.Tensor, cap: int):
+    """K7: fused elements words_t [3, E, nb] int32 (uint32 patterns,
+    MSB-aligned, zero past each element's bits) + bits_t [E, nb] int32
+    (<= 96 each) -> (words [cap, nb] int32, bits [nb] int32, overflow, a
+    0-dim bool tensor), as pack_blocks_pallas returns them: each block's
+    elements back to back, MSB first, at most cap words kept (words past a
+    block's bits are zero), the bit count always the full one, and
+    overflow where a block has more than cap * 32 bits.
+
+    On CUDA tensors this launches csrc/pack.cu (pack_blocks); on CPU
+    tensors it runs `pack_blocks_plain`."""
+    c0, e, nb = words_t.shape
+    if c0 != 3 or bits_t.shape != (e, nb) or cap < 1:
+        raise ValueError(f"bad shapes: words_t {tuple(words_t.shape)}, "
+                         f"bits_t {tuple(bits_t.shape)}, cap {cap}")
+    if words_t.device.type == "cpu":
+        return pack_blocks_plain(words_t, bits_t, cap)
+    _build.require_cuda(words_t, "words_t", torch.int32)
+    _build.require_cuda(bits_t, "bits_t", torch.int32)
+    words = torch.empty((cap, nb), dtype=torch.int32, device=words_t.device)
+    bits = torch.empty((nb,), dtype=torch.int32, device=words_t.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch(
+        "pack", "pack_blocks", (P, P, I, I, I, P, P),
+        words_t.data_ptr(), bits_t.data_ptr(), e, nb, cap, words.data_ptr(),
+        bits.data_ptr(), device=words_t.device,
+    )
+    return words, bits, (bits > cap * 32).any()
+
+
+def pack_blocks_plain(words_t: torch.Tensor, bits_t: torch.Tensor, cap: int):
+    """Plain PyTorch K7 (any device), the same function as the kernel:
+    element offsets are an exclusive cumulative sum of the element bits,
+    and `deposit` places every element word at its offset."""
+    c0, e, nb = words_t.shape
+    lens = bits_t.to(torch.int64).T  # [nb, E]
+    offs = torch.cumsum(lens, dim=1) - lens
+    vals = (words_t.to(torch.int64) & _MASK32).permute(2, 1, 0)  # [nb, E, 3]
+    woffs = offs[..., None] + 32 * torch.arange(c0, device=words_t.device)
+    words = deposit(vals.reshape(nb, -1),
+                    torch.full_like(woffs, 32).reshape(nb, -1),
+                    woffs.reshape(nb, -1), cap)
+    bits = lens.sum(dim=1).to(torch.int32)
+    return to_int32(words.T.contiguous()), bits, (bits > cap * 32).any()

@@ -10,10 +10,13 @@ shares.
 The main path at the default EncodeConfig runs four kernels on the card:
 K1 transform (ops.transform) -> DC differences -> K4 symbolize + pack
 (entropy.pack) -> K8 row merge + K9 stream concat (entropy.concat) ->
-tail padding. The host reads (overflow, total bits), then the valid word
-prefix, and stuffs it with the native runtime. A block that overflows
-the per-block capacity retries the entropy chain at the next rung of the
-capacity ladder (8 -> 16 -> 53 words); the transform runs once.
+tail padding. Frames whose stream buffer is past jpegtpu's resident
+budget (gray_concat_mode; the 7680 x 4320 frame at every rung) take
+K10's tiled concat in place of K9. The host reads (overflow, total
+bits), then the valid word prefix, and stuffs it with the native
+runtime. A block that overflows the per-block capacity retries the
+entropy chain at the next rung of the capacity ladder (8 -> 16 -> 53
+words); the transform runs once.
 
 With restart_interval the DC chain resets at every segment and K12
 (entropy.stitch) takes the place of K8 + K9: it lays the byte-aligned,
@@ -34,7 +37,8 @@ import torch
 from . import native, tables
 from .config import EncodeConfig
 from .entropy import host as entropy_host
-from .entropy.concat import apply_tail_padding, concat_stream
+from .entropy.concat import (apply_tail_padding, column_groups,
+                             concat_mode, concat_stream)
 from .entropy.device import (MAX_WORDS_PER_BLOCK, assemble_histograms,
                              dc_differences, symbol_histograms)
 from .entropy.pack import encode_blocks
@@ -196,13 +200,21 @@ def finish_streams(words: torch.Tensor, bits: torch.Tensor,
     return finish_scan(words, bits, overflow, nbh, nbw, config.pad_ones)
 
 
+def gray_concat_mode(ph: int, pw: int, cap: int) -> str:
+    """jpegtpu's concat mode for a gray frame padded to ph x pw at `cap`
+    words per block (jpegtpu.pipeline.gray_concat_mode): K9 serves
+    "pallas-resident", K10 the other modes."""
+    return concat_mode(ph // 8, pw // 8, cap, column_groups(pw // 8))
+
+
 def finish_scan(words: torch.Tensor, bits: torch.Tensor,
                 overflow: torch.Tensor, nbh: int, nbw: int,
                 pad_ones: bool) -> bytes | None:
     """Streams [cap, nb] + bits [nb] of an nbh x nbw grid in scan order
-    -> K8 + K9 -> tail padding -> one readback of (any overflow, total
-    bits), then of the valid word prefix -> stuffed scan bytes; None if
-    `overflow` holds anywhere (the caller retries at the next rung)."""
+    -> K8 + K9 (K10 past jpegtpu's resident budget) -> tail padding ->
+    one readback of (any overflow, total bits), then of the valid word
+    prefix -> stuffed scan bytes; None if `overflow` holds anywhere (the
+    caller retries at the next rung)."""
     stream, total = concat_stream(words, bits, nbh, nbw)
     stream, total = apply_tail_padding(stream, total, pad_ones)
     overflowed, total_bits = torch.stack(

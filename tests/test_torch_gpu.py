@@ -10,7 +10,9 @@ import torch
 
 import jpegtpu_torch
 from jpegtpu_torch import pipeline, tables
-from jpegtpu_torch.entropy import concat, merge, pack, stitch
+from jpegtpu_torch import _build
+from jpegtpu_torch.entropy import concat, device, merge, pack, stitch
+from jpegtpu_torch.entropy import treepack
 from jpegtpu_torch.entropy.device import (dc_differences, symbol_histograms,
                                           y_dc_differences)
 from jpegtpu_torch.ops import transform
@@ -300,3 +302,114 @@ def test_batch_encode_matches_cpu_in_int32_mode(cuda, kw):
     encode = (jpegtpu_torch.encode_grayscale_batch if cfg.n_components == 1
               else jpegtpu_torch.encode_color_batch)
     assert encode(images, cfg) == encode(images, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cap,nbw,tiles", [
+    (8, 300, 1), (8, 300, 2), (8, 300, 5), (8, 300, 17),
+    (53, 130, 1), (53, 130, 5), (53, 130, 17),
+    (318, 200, 1), (318, 200, 2),
+])
+def test_stream_concat_chunked_matches_plain_and_k9(cuda, cap, nbw, tiles):
+    """K10 against its plain version at the card's tile size and against
+    K9 on K8's segments. The segment count sets the tile: chunk_tile
+    spreads S segments over two tiles per SM, so 2 * SMs * (T - 1) + SMs
+    segments give tiles of T segments, up to what shared memory holds (8
+    at cap 53; 1 at 4:2:0's top rung, 318-word MCU streams, 163 KB).
+    Ragged rows and last tile, sub-byte and empty segments."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nbh = -(-(2 * sms * (tiles - 1) + sms) // -(-nbw // 128))
+    words, bits = _streams(cuda, cap, nbh * nbw, cap + nbh)
+    bits[: 2 * nbw] = 0  # two rows of empty segments
+    segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
+    smem = concat._smem_optin(cuda)
+    t = concat.chunk_tile(segs.shape[0], segs.shape[1], smem, sms)
+    assert t == min(tiles, concat.tile_limit(segs.shape[1], smem))
+    n = concat.stream_words(nbh * nbw, cap)
+    got, total = concat.stream_concat_chunked(segs, seg_bits, n)
+    want, want_total = concat.stream_concat_chunked_plain(segs, seg_bits, n,
+                                                          t)
+    k9, k9_total = concat.stream_concat(segs, seg_bits, n)
+    assert int(total) == int(want_total) == int(k9_total)
+    assert torch.equal(got, want) and torch.equal(got, k9)
+
+
+def test_stream_concat_chunked_refuses_a_segment_past_the_card(cuda):
+    segs = torch.zeros((2, 128 * 460), dtype=torch.int32, device=cuda)
+    seg_bits = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        concat.stream_concat_chunked(segs, seg_bits, 64)
+
+
+@pytest.mark.parametrize("cap", [1, 8, 16, 53])
+@pytest.mark.parametrize("quality", [50, 100])
+def test_pack_blocks_matches_plain(cuda, cap, quality):
+    """K7 on the staged path's fused elements of a real block transform,
+    every cap from one word (overflowing) to the top rung."""
+    rng = np.random.default_rng(cap + quality)
+    img = torch.from_numpy(rng.integers(0, 256, (72, 1032), np.uint8)).to(
+        cuda)
+    state = tables.encoder_state(
+        jpegtpu_torch.EncodeConfig(quality=quality), cuda)
+    lv = transform.transform(img, state, True)
+    values, lengths = device.symbolize_elements64(lv.T)
+    words_t, bits_t = treepack._fuse_subslots(values, lengths, 3)
+    got = pack.pack_blocks(words_t, bits_t, cap)
+    want = pack.pack_blocks_plain(words_t, bits_t, cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(got[2]) == bool(want[2])
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"fused": False}, {"fused": False, "capacity_words": 131 * 8},
+    {"packer": "scatter"}, {"stuff": False, "seg_len": 5},
+    {"stuff": False, "fused": False, "pad_ones": False},
+    {"table_sel": "array"}, {"table_sel": "array", "dc_diff": True},
+])
+def test_encode_scan_device_matches_cpu(cuda, kw):
+    rng = np.random.default_rng(9)
+    zz = (rng.standard_normal((131, 64))
+          * np.geomspace(6, 0.3, 64)[None, :]).astype(np.int32)
+    kw = dict(kw)
+    if kw.get("table_sel") == "array":
+        kw["table_sel"] = (np.arange(131) % 6 >= 4).astype(np.int64)
+    if kw.pop("dc_diff", None):
+        kw["dc_diff"] = torch.from_numpy(
+            np.diff(zz[:, 0], prepend=0).astype(np.int32))
+    before = dict(_build.LAUNCHES)
+    got = device.encode_scan_device(torch.from_numpy(zz).to(cuda), **kw)
+    launched = {k for k in before if _build.LAUNCHES[k] > before[k]}
+    if kw.get("packer") == "scatter":
+        assert not launched
+    elif kw.get("fused", True) and (not isinstance(kw.get("table_sel", 0),
+                                                    np.ndarray)
+                                    or "dc_diff" in kw):
+        assert launched == {"encode_blocks", "merge_rows", "stream_concat"}
+    else:
+        assert launched == {"pack_blocks", "merge_rows", "stream_concat"}
+    want = device.encode_scan_device(torch.from_numpy(zz), **kw)
+    assert all(a.device.type == "cuda" for a in got)
+    assert int(got[1]) == int(want[1]) and bool(got[2]) == bool(want[2])
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.parametrize("kind", ["gray", "420"])
+def test_encode_through_k10_matches_cpu_in_int32_mode(cuda, monkeypatch,
+                                                      kind):
+    """With the resident budget shrunk, small frames take K10's route on
+    the card, byte-equal to the CPU path."""
+    monkeypatch.setattr(concat, "VMEM_BUDGET", 64 << 10)
+    rng = np.random.default_rng(4)
+    if kind == "gray":
+        img = rng.integers(0, 256, (200, 264), np.uint8)
+        cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32")
+        encode = jpegtpu_torch.encode_grayscale
+    else:
+        img = rng.integers(0, 256, (200, 264, 3), np.uint8)
+        cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32", subsampling="420")
+        encode = jpegtpu_torch.encode_color
+    before = dict(_build.LAUNCHES)
+    got = encode(img, cfg)
+    assert _build.LAUNCHES["stream_concat_chunked"] > before[
+        "stream_concat_chunked"]
+    assert _build.LAUNCHES["stream_concat"] == before["stream_concat"]
+    assert got == encode(img, cfg, device="cpu")
