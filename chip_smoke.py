@@ -17,7 +17,13 @@ of 512 x 512:
   gray batch (encode_grayscale_batch): K1, K4, K8 at segment width 64,
          K11;
   4:2:0 batch (encode_color_batch): K2, K3, K4, K5, K8 at width 32, K11;
-  and both with shared 2-pass tables.
+  and both with shared 2-pass tables;
+then the 8K frame, 7680 x 4320, gray and 4:2:0 (K10 in place of K9); the
+staged levels -> scan entry point (encode_scan_device(fused=False): K7);
+the configs that once failed (first rungs past K8's shared memory,
+dct_dtype float64 / float16, stuff="device"); and the color batch of 16
+images of 3024 x 4032 at 4:2:0, which merges its MCU streams by
+jpegtpu's slot-major route: K2, K3, K4, a gather, K6, K8, K11.
 For each path it holds every kernel against its plain PyTorch version at
 the path's shapes (K12 also at restart_interval 1 and with a ragged last
 segment; K8 and K11 also at the top rung), encodes end to end through
@@ -59,6 +65,8 @@ SIDE_H, SIDE_W = 1024, 1536  # the 4:2:2 and 4:4:4 checks
 BATCH_N, BATCH_H, BATCH_W = 1024, 512, 512
 TOP_N = 128  # images of the top-rung K8 / K11 checks
 BIG_H, BIG_W = 4320, 7680  # the 8K frame, 33.2 MPix (bench.py:521-575)
+K6_N = 16  # 3024 x 4032 images of the batch K6 phase
+K6_RUNG16_N = 64  # 512 x 512 images of its rung-16 check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPS = 20
@@ -762,8 +770,9 @@ def batch_images(n: int, h: int, w: int, color: bool, seed: int) -> np.ndarray:
 
 def batch_stage_breakdown(images: list, cfg, reps: int = 5) -> dict:
     """Host-clock milliseconds of each stage of one batch encode (one
-    group, gray or 4:2:0, first rung), each ended by a synchronize
-    (medians over reps)."""
+    group, gray or 4:2:0, first rung; 4:2:0 merges with K5 or, where
+    jpegtpu's raw body does not apply, with the slot-major gather and
+    K6), each ended by a synchronize (medians over reps)."""
     stages = {}
 
     def mark(name, t0):
@@ -795,9 +804,18 @@ def batch_stage_breakdown(images: list, cfg, reps: int = 5) -> dict:
             wy, by = pack.encode_blocks(ly, dcd[0], state.huff, cap)
             wc, bc = pack.encode_blocks(lc, dcd[1], state.huff_chroma, cap)
             t = mark("K4_pack_x2", t)
-            words, bits = merge.merge_mcu(wy, by, wc, bc, n * nbh, nbw, "420")
-            over = torch.cat([by, bc]) > cap * 32
-            t = mark("K5_merge_mcu", t)
+            if batch.color_raw_ok(h, w, "420", cap):
+                words, bits = merge.merge_mcu(wy, by, wc, bc, n * nbh, nbw,
+                                              "420")
+                over = torch.cat([by, bc]) > cap * 32
+                t = mark("K5_merge_mcu", t)
+            else:  # jpegtpu's slot-major route
+                sm = merge.slot_major_streams(wy, by, wc, bc, n * nbh, nbw,
+                                              "420")
+                t = mark("slot_major_gather", t)
+                words, bits = merge.merge_streams(*sm)
+                over = torch.cat([by, bc]) > cap * 32
+                t = mark("K6_merge_streams", t)
         else:
             lv = transform.transform(x.reshape(n * h, w), state, False)
             t = mark("K1_transform", t)
@@ -947,7 +965,7 @@ def batch_phases(dev, say) -> list:
 
         # --- 19. shared 2-pass tables at the same size -------------------
         cfg2 = dataclasses.replace(cfg, optimize_huffman=True)
-        check((batch.shares_color_tables(h, w, "420", cap) if color
+        check((batch.color_raw_ok(h, w, "420", cap) if color
                else batch.shares_gray_tables(h, w, cap)),
               f"batch {kind}: 2-pass tables are not shared at {h} x {w}")
         t0 = time.perf_counter()
@@ -1345,6 +1363,179 @@ def staged_entropy_phases(dev, say) -> list:
                         [H, W], say)
 
 
+def repaired_config_phases(dev, say) -> None:
+    """Configs the port once refused or could not run on the card, at
+    3024 x 4032: a first rung past K8's shared memory (4:2:0 at 76 words a
+    block, gray at 453), which runs the kernels at 53 words; dct_dtype
+    float64 and float16; stuff="device" at jpegtpu's four single-segment
+    sites, stuffed on the card, and on a restart encode, which ignores
+    it. Every encode against the same image's bytes at the default."""
+    gray, rgb = make_image(H, W), make_color_image(H, W)
+    out = {}
+    for name, img, kw in (
+        ("420_cap76", rgb, {"subsampling": "420",
+                            "capacity_words_per_block": 76}),
+        ("gray_cap453", gray, {"capacity_words_per_block": 453}),
+        ("420_float64", rgb, {"subsampling": "420", "dct_dtype": "float64"}),
+        ("gray_float16", gray, {"dct_dtype": "float16"}),
+    ):
+        encode = (color_pipeline.encode_color if img.ndim == 3
+                  else pipeline.encode_grayscale)
+        base = {k: v for k, v in kw.items() if k == "subsampling"}
+        got = encode(img, EncodeConfig(**kw))
+        check(got == encode(img, EncodeConfig(**base)),
+              f"{name}: bytes != the default config's")
+        out[name] = len(got)
+    stuffed = []
+    orig = pipeline.stuff_bytes_device
+    pipeline.stuff_bytes_device = lambda *a: stuffed.append(1) or orig(*a)
+    try:
+        for name, img, kw, on_card in (
+            ("gray", gray, {}, True),
+            ("gray_two_pass", gray, {"optimize_huffman": True}, True),
+            ("420", rgb, {"subsampling": "420"}, True),
+            ("420_two_pass", rgb, {"subsampling": "420",
+                                   "optimize_huffman": True}, True),
+            ("gray_restart_504", gray, {"restart_interval": 504}, False),
+        ):
+            encode = (color_pipeline.encode_color if img.ndim == 3
+                      else pipeline.encode_grayscale)
+            before = len(stuffed)
+            got = encode(img, EncodeConfig(stuff="device", **kw))
+            check((len(stuffed) > before) == on_card,
+                  f"stuff=device {name}: stuffed on the card "
+                  f"{len(stuffed) - before} times")
+            check(got == encode(img, EncodeConfig(**kw)),
+                  f"stuff=device {name}: bytes != host stuffing")
+            out[f"stuff_device_{name}"] = len(got)
+    finally:
+        pipeline.stuff_bytes_device = orig
+    say("repaired_configs", shape=[H, W], bytes=out)
+
+
+def batch_k6_phases(dev, say) -> list:
+    """jpegtpu's non-raw color batch route at full width: 16 images of
+    3024 x 4032 at 4:2:0 (jpegtpu buckets batches to powers of two; 195
+    MPix, the scale of its 1024 x 512 x 512 batch row), past the raw
+    body's row budget at every rung, so the MCU merge is K6 on slot-major
+    streams. K6 against its plain version and K5 on the phase's streams,
+    end to end through encode_color_batch (K6 launched, K5 not) with
+    every file held against its single-image encode (which merges with
+    K5), an int32 2-image batch against the CPU path, MPix/s and a stage
+    breakdown; a 64 x 512 x 512 batch at rung 16, which jpegtpu also
+    merges with K6; and K6's device time. Returns the kernel entries."""
+    n, h, w, cap = K6_N, H, W, 8
+    cfg = EncodeConfig(subsampling="420")
+    nmch, nmcw = h // 16, w // 16
+    m = n * nmch * nmcw
+    check(not batch.color_raw_ok(h, w, "420", 8)
+          and not batch.color_raw_ok(h, w, "420", 16),
+          "batch_k6: 3024 x 4032 4:2:0 takes jpegtpu's raw route")
+    t0 = time.perf_counter()
+    arr = batch_images(n, h, w, True, seed=42)
+    images = list(arr)
+    say("batch_k6_images", shape=[n, h, w, 3],
+        seconds=time.perf_counter() - t0)
+
+    # --- 30. K6 against its plain version and K5, the phase's streams ---
+    state = tables.encoder_state(cfg, dev)
+    rgb = torch.from_numpy(arr).to(dev).reshape(n * h, w, 3)
+    ly = transform.transform_rgb_y(rgb, state, False)
+    lc = transform.transform_rgb_chroma(rgb, state, False, "420")
+    del rgb
+    dcd = color_pipeline.color_dc_differences(ly, lc, n * nmch, nmcw, "420",
+                                              nmch * nmcw)
+    wy, by = pack.encode_blocks(ly, dcd[0], state.huff, cap)
+    wc, bc = pack.encode_blocks(lc, dcd[1], state.huff_chroma, cap)
+    del ly, lc, dcd
+    check(int(torch.cat([by, bc]).max()) <= cap * 32,
+          "batch_k6: the batch overflowed cap 8")
+    sw, sb = merge.slot_major_streams(wy, by, wc, bc, n * nmch, nmcw, "420")
+    got = merge.merge_streams(sw, sb)
+    results = {"merge_streams": equal_streams(
+        "K6 batch_k6", got, merge.merge_streams_plain(sw, sb))}
+    check(all(torch.equal(a, b) for a, b in zip(
+        got, merge.merge_mcu(wy, by, wc, bc, n * nmch, nmcw, "420"))),
+        "batch_k6: K6 != K5 on the same streams")
+    del got, wy, by, wc, bc
+    say("batch_k6_kernels_vs_plain", shape=[n, h, w, 3], mcus=m,
+        slot_major=list(sw.shape), k6_equals_k5=True, **results)
+
+    # --- 31. end to end through encode_color_batch -----------------------
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    files = batch.encode_color_batch(images, cfg)
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(all(launches[k] > 0 for k in (
+        "transform_rgb_y", "transform_rgb_chroma", "encode_blocks",
+        "merge_streams", "merge_rows", "stream_concat_rows")),
+        f"batch_k6 skipped a kernel: {launches}")
+    check(launches["merge_streams"] == 1 and launches["merge_mcu"] == 0,
+          f"batch_k6: K6 / K5 launches {launches}")
+    for i, im in enumerate(images):
+        check(files[i] == color_pipeline.encode_color(im, cfg),
+              f"batch_k6: file {i} != its single-image encode")
+    e2e_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        batch.encode_color_batch(images, cfg)
+        e2e_s.append(time.perf_counter() - t0)
+    e2e_med = float(np.median(e2e_s))
+    say("batch_k6_end_to_end", shape=[n, h, w, 3], quality=cfg.quality,
+        bytes=sum(map(len, files)), first_call_s=first_s, median_s=e2e_med,
+        runs_s=e2e_s, mpix_per_s=n * h * w / 1e6 / e2e_med,
+        launches=launches, files_equal_single_image=n)
+    say("batch_k6_stage_breakdown_ms", shape=[n, h, w, 3],
+        **batch_stage_breakdown(images, cfg))
+    cfg_int = dataclasses.replace(cfg, dct_dtype="int32")
+    t0 = time.perf_counter()
+    check(batch.encode_color_batch(images[:2], cfg_int)
+          == batch.encode_color_batch(images[:2], cfg_int, device="cpu"),
+          "batch_k6 int32: card bytes != CPU batch path")
+    say("batch_k6_int32_vs_cpu", shape=[2, h, w, 3],
+        seconds=time.perf_counter() - t0)
+    del files, images, arr
+
+    # --- 32. rung 16: K6 for a shape jpegtpu merges with K5 at rung 8 ----
+    small = list(batch_images(K6_RUNG16_N, BATCH_H, BATCH_W, True, seed=43))
+    check(batch.color_raw_ok(BATCH_H, BATCH_W, "420", 8),
+          "batch_k6: 512 x 512 4:2:0 left jpegtpu's raw route at rung 8")
+    runs = {}
+    for c in (8, 16):
+        before = dict(_build.LAUNCHES)
+        got_c = batch.encode_color_batch(
+            small, dataclasses.replace(cfg, capacity_words_per_block=c))
+        runs[c] = (got_c, {k: _build.LAUNCHES[k] - before[k]
+                           for k in ("merge_streams", "merge_mcu")})
+    check(runs[16][1] == {"merge_streams": 1, "merge_mcu": 0}
+          and runs[8][1] == {"merge_streams": 0, "merge_mcu": 1},
+          f"batch_k6 rung 16: launches {runs[8][1]} / {runs[16][1]}")
+    check(runs[16][0] == runs[8][0], "batch_k6: rung 16 bytes != rung 8")
+    say("batch_k6_rung16", shape=[K6_RUNG16_N, BATCH_H, BATCH_W, 3],
+        launches_cap8=runs[8][1], launches_cap16=runs[16][1],
+        bytes=sum(map(len, runs[16][0])))
+    del small, runs
+
+    # --- 33. K6 device time and bound -----------------------------------
+    e = sw.shape[0]
+    valid_words = int(((sb.long().clamp(max=cap * 32) + 31) // 32).sum())
+    specs_t = [
+        ("merge_streams", "jpegtpu_torch/csrc/merge.cu",
+         "jpegtpu/entropy/pallas_pack.py:683",
+         lambda: merge.merge_streams(sw, sb),
+         lambda: merge.merge_streams_plain(sw, sb),
+         valid_words * 4 + e * m * 4 + e * cap * m * 4 + m * 4,
+         valid_words * 2),
+    ]
+    entries = time_kernels(specs_t, launches, results, "batch_k6",
+                           [n, h, w, 3], say)
+    del sw, sb
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1516,6 +1707,8 @@ def main() -> int:
     kernels += batch_phases(dev, say)
     kernels += large_frame_phases(dev, say)
     kernels += staged_entropy_phases(dev, say)
+    repaired_config_phases(dev, say)
+    kernels += batch_k6_phases(dev, say)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

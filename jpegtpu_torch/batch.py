@@ -28,9 +28,16 @@ With optimize_huffman a group shares one set of 2-pass tables: the
 symbols of the whole stack are counted once, and K4 encodes the stack
 with the floored package-merge tables. Which groups share is part of
 jpegtpu's output, so the port keeps its rule (shares_gray_tables,
-shares_color_tables); every other image gets its own 2-pass tables from
-the single-image encoders. A restart interval or host entropy sends every
+color_raw_ok); every other image gets its own 2-pass tables from the
+single-image encoders. A restart interval or host entropy sends every
 image to the single-image encoders, as in jpegtpu.
+
+A color group merges its MCU streams where jpegtpu does: K5 on jpegtpu's
+raw route (color_raw_ok) and above cap 16, K6 on slot-major streams
+(color_pipeline.mcu_streams_slot_major) at the other rungs up to 16: a
+batch of 12 MPix photos at every rung, any shape at rung 16. Both give
+the same bytes. The kernels run at pipeline.kernel_cap of each rung;
+the rules read the rung.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ import torch
 
 from . import tables
 from .color_pipeline import (color_dc_differences, color_tables, encode_color,
-                             mcu_streams)
+                             mcu_streams, mcu_streams_slot_major)
 from .config import EncodeConfig
 from .entropy.concat import LANES, concat_segments
 from .entropy.device import dc_differences, symbol_histograms
@@ -52,7 +59,8 @@ from .ops.blocks import (mcu_dims, pad_edge, padded_dims_color,
                          sampling_factors, slots_per_mcu)
 from .ops.transform import transform, transform_rgb_chroma, transform_rgb_y
 from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
-                       optimal_tables, resolve_device, segments_from_streams)
+                       kernel_cap, optimal_tables, resolve_device,
+                       segments_from_streams)
 
 # jpegtpu's transform tile height in pixels (pallas_transform.TILE_H), which
 # its table-sharing rule counts in.
@@ -85,12 +93,17 @@ def shares_gray_tables(ph: int, pw: int, cap: int) -> bool:
             and (nb * cap // LANES + cap + 8) * 512 <= 12 << 20)
 
 
-def shares_color_tables(ph: int, pw: int, subsampling: str,
-                        cap: int) -> bool:
-    """The color twin of shares_gray_tables (jpegtpu's _color_raw_ok):
-    cap <= 8, at most 256 kernel rows per image segment, and one image's
-    stream buffer plus two steps of row segments within 12 MiB of VMEM.
-    Like it, a rule of the reference's output, not a limit of this card."""
+def color_raw_ok(ph: int, pw: int, subsampling: str, cap: int) -> bool:
+    """jpegtpu's _color_raw_ok on a bucketed batch (bucketing makes the
+    batch a multiple of its packing ratio): whether it encodes a color
+    group of MCU-padded shape ph x pw at rung `cap` by its all-Pallas raw
+    body. Where it does, an optimize_huffman group shares its 2-pass
+    tables and the MCU merge is K5; elsewhere each image gets its own
+    tables, and the merge is K6 up to cap 16 (its slot-major route) and
+    K5 above. The test: cap <= 8, at most 256 kernel rows per image
+    segment, and one image's stream buffer plus two steps of row segments
+    within 12 MiB of VMEM. Like shares_gray_tables, a rule of the
+    reference's output and kernel choice, not a limit of this card."""
     fy, fx = sampling_factors(subsampling)
     nmch, nmcw = ph // (8 * fy), pw // (8 * fx)
     seg_rows = -(-(ph // fy) // _TILE_H) * (_TILE_H // 8) * -(-nmcw // LANES)
@@ -108,7 +121,6 @@ def _prepare(images, config: EncodeConfig, mesh, n_components: int,
         raise NotImplementedError(
             "batch sharding across devices (mesh) is not ported yet "
             "(ROADMAP.md M7, multi-GPU)")
-    config.check_supported()
     if config.n_components != n_components:
         raise ValueError(
             f"subsampling={config.subsampling!r} does not fit this batch "
@@ -174,8 +186,9 @@ def _gray_group(images: list, ph: int, pw: int, config: EncodeConfig,
             lambda cap: shares_gray_tables(ph, pw, cap), caps)
 
     def streams_at(cap):
-        words, bits = encode_blocks(levels, dcd, huff, cap)
-        return words, bits, bits > cap * 32
+        kcap = kernel_cap(cap)
+        words, bits = encode_blocks(levels, dcd, huff, kcap)
+        return words, bits, bits > kcap * 32
 
     scans = _encode_stack(streams_at, caps, b, nbh, nbw, config.pad_ones)
     if scans is None:
@@ -194,7 +207,7 @@ def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
     """One group of a color batch (MCU-padded shape ph x pw) -> its files
     in order."""
     ss = config.subsampling
-    if config.optimize_huffman and not shares_color_tables(ph, pw, ss, 8):
+    if config.optimize_huffman and not color_raw_ok(ph, pw, ss, 8):
         return [encode_color(image, config, device=dev) for image in images]
     stack = np.stack([
         pad_edge(np.repeat(image[..., None], 3, axis=-1)
@@ -215,11 +228,15 @@ def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
     if config.optimize_huffman:
         specs, state = color_tables(luma, chroma, dcd, state)
         caps = itertools.takewhile(
-            lambda cap: shares_color_tables(ph, pw, ss, cap), caps)
-    scans = _encode_stack(
-        lambda cap: mcu_streams(luma, chroma, dcd, state, b * nmch, nmcw, ss,
-                                cap),
-        caps, b, nmch, nmcw, config.pad_ones)
+            lambda cap: color_raw_ok(ph, pw, ss, cap), caps)
+
+    def streams_at(cap):
+        slot_major = cap <= 16 and not color_raw_ok(ph, pw, ss, cap)
+        streams = mcu_streams_slot_major if slot_major else mcu_streams
+        return streams(luma, chroma, dcd, state, b * nmch, nmcw, ss,
+                       kernel_cap(cap))
+
+    scans = _encode_stack(streams_at, caps, b, nmch, nmcw, config.pad_ones)
     if scans is None:
         if not config.optimize_huffman:
             raise RuntimeError("worst-case entropy capacity overflowed (bug)")

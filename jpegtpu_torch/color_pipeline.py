@@ -39,13 +39,15 @@ from .config import EncodeConfig
 from .entropy.concat import column_groups, concat_mode
 from .entropy.device import (dc_differences, symbol_histograms,
                              y_dc_differences)
-from .entropy.merge import mcu_luma_blocks, merge_mcu
+from .entropy.merge import (mcu_luma_blocks, merge_mcu, merge_streams,
+                            slot_major_streams)
 from .entropy.pack import encode_blocks
 from .io import jfif
 from .ops.blocks import mcu_dims, pad_edge, sampling_factors, slots_per_mcu
 from .ops.transform import transform_rgb_chroma, transform_rgb_y
 from .pipeline import (_check_image, capacity_ladder, finish_streams,
-                       host_scan, optimal_tables, record_cap, resolve_device)
+                       host_scan, kernel_cap, optimal_tables, record_cap,
+                       resolve_device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -86,7 +88,6 @@ def component_levels(image: np.ndarray, config: EncodeConfig,
     """Host edge-pad to the MCU -> device -> K2 and K3. Returns (luma
     levels [64, ny], chroma levels [64, 2 * nmcu] (Cb then Cr), encoder
     state, padded (ph, pw))."""
-    config.check_supported()
     if config.n_components != 3:
         raise ValueError("encode_color needs a color subsampling "
                          "(420, 422 or 444); use encode_grayscale for gray")
@@ -195,10 +196,11 @@ def encode_color_levels(luma: torch.Tensor, chroma: torch.Tensor,
     if dcd is None:
         dcd = color_dc_differences(luma, chroma, nmch, nmcw,
                                    config.subsampling, config.restart_interval)
+    ss = config.subsampling
     for cap in capacity_ladder(config, key):
         scan = finish_streams(*mcu_streams(luma, chroma, dcd, state, nmch,
-                                           nmcw, config.subsampling, cap),
-                              nmch, nmcw, config)
+                                           nmcw, ss, kernel_cap(cap)),
+                              nmch, nmcw, config, slots_per_mcu(ss) * cap)
         if scan is not None:
             record_cap(key, cap)
             return scan
@@ -214,4 +216,20 @@ def mcu_streams(luma: torch.Tensor, chroma: torch.Tensor, dcd,
     wy, by = encode_blocks(luma, dcd[0], state.huff, cap)
     wc, bc = encode_blocks(chroma, dcd[1], state.huff_chroma, cap)
     merged, mbits = merge_mcu(wy, by, wc, bc, nmch, nmcw, subsampling)
+    return merged, mbits, torch.cat([by, bc]) > cap * 32
+
+
+def mcu_streams_slot_major(luma: torch.Tensor, chroma: torch.Tensor, dcd,
+                           state: tables.EncoderState, nmch: int, nmcw: int,
+                           subsampling: str, cap: int):
+    """mcu_streams by jpegtpu's slot-major route (_mcu_streams_fused): K4
+    with each table in raster order, a gather of its streams into
+    slot-major planes [E, cap, nmcu] (entropy.merge.slot_major_streams:
+    cap words a block, not 64 levels), then K6. nmch counts the MCU rows
+    of a whole batch stacked vertically. The same outputs as
+    mcu_streams."""
+    wy, by = encode_blocks(luma, dcd[0], state.huff, cap)
+    wc, bc = encode_blocks(chroma, dcd[1], state.huff_chroma, cap)
+    merged, mbits = merge_streams(*slot_major_streams(
+        wy, by, wc, bc, nmch, nmcw, subsampling))
     return merged, mbits, torch.cat([by, bc]) > cap * 32

@@ -1,9 +1,9 @@
 """Encoder configuration (counterpart of `jpegtpu/config.py`).
 
 The same frozen dataclass, field for field, so a config means the same
-encode in both packages. The port serves single-image encodes, gray and
-color, with or without restart intervals and 2-pass optimal Huffman
-tables; `check_supported` names the ROADMAP.md item for the rest.
+encode in both packages. The port serves every field's values that
+jpegtpu serves (batch sharding across devices, a `mesh` argument of the
+batch encoders, is not a field and is refused there).
 """
 from __future__ import annotations
 
@@ -25,15 +25,22 @@ class EncodeConfig:
       pad_ones: pad the final partial byte with 1s (T.81) or 0s.
       bitexact: use the reference's 6-decimal DCT basis literals
         (tables.dct_basis_reference); otherwise the true orthonormal basis.
-      dct_dtype: "float32" (true division, round half away from zero) or
-        "int32" (11-bit fixed-point DCT, exact integer quantizer; the same
-        levels on every backend).
+      dct_dtype: "int32" (11-bit fixed-point DCT, exact integer quantizer;
+        the same levels on every backend), or any other name numpy's
+        np.dtype parses ("float32", "float64", "float16", ...), which all
+        take the float32 path (true division, round half away from zero),
+        as in jpegtpu. "bfloat16" parses only where the ml_dtypes package
+        is importable (it registers the type with numpy); jpegtpu imports
+        it with JAX.
       entropy: "device" runs symbolize + pack + concat on the card;
         "host" uses the numpy coder (entropy.host).
       capacity_words_per_block: first rung of the per-block output
         capacity (uint32 words) of the device packer; overflow retries
         at the next rung (pipeline.capacity_ladder).
-      stuff: where 0xFF byte stuffing runs ("host" or "device").
+      stuff: where 0xFF byte stuffing runs ("host" or "device"). It is
+        read where jpegtpu reads it, by the single-segment encodes (gray
+        and color, single-pass and 2-pass); restart, batch and host
+        entropy stuff on the host whatever it says, as in jpegtpu.
       optimize_huffman: 2-pass optimal Huffman tables.
     """
 
@@ -62,8 +69,7 @@ class EncodeConfig:
             raise ValueError(f"unknown entropy backend {self.entropy!r}")
         if self.stuff not in ("host", "device"):
             raise ValueError(f"unknown stuffing mode {self.stuff!r}")
-        if self.dct_dtype not in ("float32", "int32"):
-            raise ValueError(f"unknown dct_dtype {self.dct_dtype!r}")
+        _parse_dtype(self.dct_dtype)
 
     @property
     def luma_quant(self) -> np.ndarray:
@@ -77,10 +83,25 @@ class EncodeConfig:
     def n_components(self) -> int:
         return 1 if self.subsampling == "gray" else 3
 
-    def check_supported(self) -> None:
-        """Raise NotImplementedError for what this port does not serve yet,
-        naming the ROADMAP.md item that will port it."""
-        if self.stuff == "device":
-            raise NotImplementedError(
-                'device byte stuffing (stuff="device") is not ported yet '
-                "(ROADMAP.md M10)")
+    def dct_basis(self) -> np.ndarray:
+        """The [8, 8] DCT basis (the reference's literals with bitexact)
+        cast to dct_dtype, as jpegtpu's EncodeConfig.dct_basis. The
+        kernels take their bases from tables.encoder_state."""
+        dt = _parse_dtype(self.dct_dtype)
+        if self.bitexact:
+            return tables.dct_basis_reference(dt)
+        return tables.dct_basis(dt)
+
+
+def _parse_dtype(name: str) -> np.dtype:
+    """np.dtype(name), after importing ml_dtypes where numpy does not know
+    the name yet (it registers "bfloat16"); ValueError if neither does."""
+    try:
+        return np.dtype(name)
+    except TypeError:
+        pass
+    try:
+        import ml_dtypes  # noqa: F401  (registers its types with numpy)
+        return np.dtype(name)
+    except (ImportError, TypeError):
+        raise ValueError(f"unknown dct_dtype {name!r}") from None

@@ -26,6 +26,29 @@
 // byte planes exist only because a TPU vector cannot gather lanes; here a
 // thread reads its blocks' words by address.
 
+// K6: the same interleave from slot-major streams, one thread per MCU.
+//
+// Replaces jpegtpu/entropy/pallas_pack.py: merge_streams_pallas
+// (_merge_kernel), the MCU merge of jpegtpu's non-raw color batch route
+// (color_pipeline._mcu_streams_fused).
+//
+// Input: words [E, cap, M] (plane s holds every MCU's s-th block stream,
+// word j of MCU m at (s * cap + j) * M + m) and bits [E, M]. For MCU m the
+// kernel concatenates streams s = 0 .. E - 1 MSB-first at running bit
+// offsets into E * cap words of a [E * cap, M] frame, words past the
+// MCU's bits zero, and writes its bit count; bits are clamped to cap * 32
+// as in K5. The TPU kernel folds each shifted word into its frame by a
+// one-hot select cascade over every frame position it could reach
+// (~1.1k selects per lane at 4:2:0, cap 8), because a vector register
+// has no dynamic index, and tiles M as [G, 8, 128]; here a thread
+// retires each word straight to its slot through K5's funnel-shift
+// accumulator.
+//
+// Bound: bytes. Each MCU's valid words and its E bit counts are read once
+// and the E * cap * M frame is written once (146 MB at 16 x 3024 x 4032
+// 4:2:0, cap 8). Threads of neighbouring MCUs read plane (s, j) and store
+// frame word j at neighbouring addresses, so both are coalesced.
+
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -51,6 +74,26 @@ struct WordWriter {
       nacc -= 32;
     }
   }
+
+  // Append the first `bits` bits (clamped to cap * 32) of the MSB-first
+  // stream whose word j is src[j * src_stride]; returns the bits taken.
+  __device__ int put_stream(const unsigned* src, size_t src_stride, int bits,
+                            int cap) {
+    const int n = min(bits, cap * 32);
+    for (int j = 0, b = n; b > 0; ++j, b -= 32) {
+      const int len = min(b, 32);
+      put(src[(size_t)j * src_stride] >> (32 - len), len);
+    }
+    return n;
+  }
+
+  // Flush the partial word (zeros below the residue) and zero the frame's
+  // words up to n_words.
+  __device__ void close(int n_words) {
+    int next = widx;
+    if (nacc > 0) words[(size_t)next++ * stride] = (unsigned)(acc >> 32);
+    for (; next < n_words; ++next) words[(size_t)next * stride] = 0u;
+  }
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -71,34 +114,34 @@ merge_mcu_kernel(const unsigned* __restrict__ wy, const int* __restrict__ by,
   w.stride = (size_t)nmcu;
   int total = 0;
   for (int s = 0; s < ky + 2; ++s) {
-    size_t blk, stride;
-    const unsigned* src;
-    int b;
     if (s < ky) {
-      blk = (size_t)(fy * my + s / fx) * nbw_y + fx * mx + s % fx;
-      src = wy;
-      stride = ny;
-      b = by[blk];
+      const size_t blk =
+          (size_t)(fy * my + s / fx) * nbw_y + fx * mx + s % fx;
+      total += w.put_stream(wy + blk, ny, by[blk], cap);
     } else {
-      blk = (size_t)(s - ky) * nmcu + m;
-      src = wc;
-      stride = 2 * (size_t)nmcu;
-      b = bc[blk];
-    }
-    b = min(b, cap * 32);
-    total += b;
-    for (int j = 0; b > 0; ++j, b -= 32) {
-      const int len = min(b, 32);
-      w.put(src[(size_t)j * stride + blk] >> (32 - len), len);
+      const size_t blk = (size_t)(s - ky) * nmcu + m;
+      total += w.put_stream(wc + blk, 2 * (size_t)nmcu, bc[blk], cap);
     }
   }
-  int next = w.widx;
-  if (w.nacc > 0) {  // flush the partial word (zeros below the residue)
-    out[(size_t)next * nmcu + m] = (unsigned)(w.acc >> 32);
-    ++next;
-  }
-  const int cap_out = (ky + 2) * cap;
-  for (int j = next; j < cap_out; ++j) out[(size_t)j * nmcu + m] = 0u;
+  w.close((ky + 2) * cap);
+  out_bits[m] = total;
+}
+
+__global__ void __launch_bounds__(kThreads)
+merge_streams_kernel(const unsigned* __restrict__ words,
+                     const int* __restrict__ bits, int e, int cap, int m_all,
+                     unsigned* __restrict__ out, int* __restrict__ out_bits) {
+  const int m = blockIdx.x * kThreads + threadIdx.x;
+  if (m >= m_all) return;
+  const size_t M = (size_t)m_all;
+  WordWriter w;
+  w.words = out + m;
+  w.stride = M;
+  int total = 0;
+  for (int s = 0; s < e; ++s)
+    total += w.put_stream(words + (size_t)s * cap * M + m, M,
+                          bits[(size_t)s * M + m], cap);
+  w.close(e * cap);
   out_bits[m] = total;
 }
 
@@ -113,6 +156,16 @@ extern "C" int jt_merge_mcu(const unsigned* wy, const int* by,
     merge_mcu_kernel<<<(nmcu + kThreads - 1) / kThreads, kThreads, 0,
                        stream>>>(wy, by, wc, bc, cap, nmch, nmcw, fy, fx, out,
                                  out_bits);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int jt_merge_streams(const unsigned* words, const int* bits, int e,
+                                int cap, int m, unsigned* out, int* out_bits,
+                                cudaStream_t stream) {
+  if (m > 0) {
+    merge_streams_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0,
+                           stream>>>(words, bits, e, cap, m, out, out_bits);
   }
   return (int)cudaGetLastError();
 }

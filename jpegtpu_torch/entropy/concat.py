@@ -374,14 +374,17 @@ def stream_words(nb: int, cap: int) -> int:
 
 
 def concat_stream(words: torch.Tensor, bits: torch.Tensor, nbh: int,
-                  nbw: int):
+                  nbw: int, rung_words: int | None = None):
     """Per-block streams [cap, nb] + bits [nb] of an nbh x nbw grid in scan
     order -> (scan stream int32, total bits 0-dim int64): K8, then K9
-    where the grid's concat_mode is "pallas-resident", else K10."""
+    where the grid's concat_mode is "pallas-resident", else K10. The mode
+    is jpegtpu's at rung_words words per stream, the capacity ladder's
+    rung (None: cap), which is more than cap where the kernels run at
+    pipeline.kernel_cap."""
     cap, nb = words.shape
     segs, seg_bits = merge_rows(words, bits, nbh, nbw)
-    resident = concat_mode(nbh, nbw, cap, column_groups(nbw)) == (
-        "pallas-resident")
+    resident = concat_mode(nbh, nbw, rung_words or cap,
+                           column_groups(nbw)) == "pallas-resident"
     join = stream_concat if resident else stream_concat_chunked
     return join(segs, seg_bits, stream_words(nb, cap))
 

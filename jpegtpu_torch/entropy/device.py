@@ -375,7 +375,10 @@ def encode_scan_device(zz, table_sel=0, dc_diff=None, seg_len: int = 0,
     if dc_diff is not None:
         dc_diff = torch.as_tensor(dc_diff, device=dev).to(torch.int32)
     if packer == "tree":
-        cap = max(1, capacity_words // nb)
+        # the kernels run at no more words than the longest block takes;
+        # the stream keeps jpegtpu's size for the capacity asked
+        rung = max(1, capacity_words // nb)
+        cap = min(rung, MAX_WORDS_PER_BLOCK)
         if fused and (not multi_table or dc_diff is not None):
             if multi_table:
                 words, bits = _fused_grouped_pack(zz, table_sel, dc_diff, cap)
@@ -393,7 +396,7 @@ def encode_scan_device(zz, table_sel=0, dc_diff=None, seg_len: int = 0,
             words_t, bits_t = _fuse_subslots(values, lengths, 3)
             words, bits, overflow = pack_blocks(words_t, bits_t, cap)
         segs, seg_bits = merge_rows(words, bits, 1, nb)
-        stream, total = stream_concat(segs, seg_bits, stream_words(nb, cap))
+        stream, total = stream_concat(segs, seg_bits, stream_words(nb, rung))
         stream, total = apply_tail_padding(stream, total, pad_ones)
     else:
         sel = torch.from_numpy(table_sel).to(dev) if multi_table \

@@ -14,9 +14,11 @@ tail padding. Frames whose stream buffer is past jpegtpu's resident
 budget (gray_concat_mode; the 7680 x 4320 frame at every rung) take
 K10's tiled concat in place of K9. The host reads (overflow, total
 bits), then the valid word prefix, and stuffs it with the native
-runtime. A block that overflows the per-block capacity retries the
-entropy chain at the next rung of the capacity ladder (8 -> 16 -> 53
-words); the transform runs once.
+runtime (with stuff="device" the card stuffs it, and the host reads the
+stuffed bytes). A block that overflows the per-block capacity retries
+the entropy chain at the next rung of the capacity ladder (8 -> 16 -> 53
+words; a configured first rung past 53 runs the kernels at 53,
+kernel_cap); the transform runs once.
 
 With restart_interval the DC chain resets at every segment and K12
 (entropy.stitch) takes the place of K8 + K9: it lays the byte-aligned,
@@ -40,7 +42,8 @@ from .entropy import host as entropy_host
 from .entropy.concat import (apply_tail_padding, column_groups,
                              concat_mode, concat_stream)
 from .entropy.device import (MAX_WORDS_PER_BLOCK, assemble_histograms,
-                             dc_differences, symbol_histograms)
+                             dc_differences, stuff_bytes_device,
+                             symbol_histograms)
 from .entropy.pack import encode_blocks
 from .entropy.stitch import stitch_segments
 from .io import bmp, jfif
@@ -74,7 +77,6 @@ def _check_image(image: np.ndarray) -> None:
 def _levels(image: np.ndarray, config: EncodeConfig, dev: torch.device):
     """Host edge-pad -> device -> luma -> K1. Returns (levels [64, nb]
     int32, encoder state, nbh, nbw)."""
-    config.check_supported()
     if config.n_components != 1:
         raise ValueError(f"subsampling={config.subsampling!r} is a color "
                          "config: use encode_color")
@@ -180,8 +182,10 @@ def encode_levels(levels: torch.Tensor, huff: torch.Tensor, nbh: int,
     if dcd is None:
         dcd = dc_differences(levels[0], config.restart_interval)
     for cap in capacity_ladder(config, key):
-        words, bits = encode_blocks(levels, dcd, huff, cap)
-        scan = finish_streams(words, bits, bits > cap * 32, nbh, nbw, config)
+        kcap = kernel_cap(cap)
+        words, bits = encode_blocks(levels, dcd, huff, kcap)
+        scan = finish_streams(words, bits, bits > kcap * 32, nbh, nbw,
+                              config, cap)
         if scan is not None:
             record_cap(key, cap)
             return scan
@@ -190,14 +194,27 @@ def encode_levels(levels: torch.Tensor, huff: torch.Tensor, nbh: int,
 
 def finish_streams(words: torch.Tensor, bits: torch.Tensor,
                    overflow: torch.Tensor, nbh: int, nbw: int,
-                   config: EncodeConfig) -> bytes | None:
+                   config: EncodeConfig, rung_words: int) -> bytes | None:
     """Streams of an nbh x nbw grid (blocks or MCUs) in scan order ->
     the scan bytes: restart segments of restart_interval streams
-    (finish_restart_scan), else one segment (finish_scan)."""
+    (finish_restart_scan), else one segment (finish_scan, stuffed on the
+    card with stuff="device"). rung_words: words per stream at the
+    ladder's rung (see concat_stream)."""
     if config.restart_interval:
         return finish_restart_scan(words, bits, overflow,
                                    config.restart_interval, config.pad_ones)
-    return finish_scan(words, bits, overflow, nbh, nbw, config.pad_ones)
+    return finish_scan(words, bits, overflow, nbh, nbw, config.pad_ones,
+                       rung_words, config.stuff == "device")
+
+
+def kernel_cap(cap: int) -> int:
+    """Words per block the kernels run at on ladder rung `cap`. No block
+    is longer than MAX_WORDS_PER_BLOCK words, so a rung past it gives the
+    same streams in fewer words, and K8's segments stay within the card's
+    shared memory. The rules of jpegtpu's output and kernel choice (the
+    concat decision, the batch's table sharing and merge route) read the
+    rung itself."""
+    return min(cap, MAX_WORDS_PER_BLOCK)
 
 
 def gray_concat_mode(ph: int, pw: int, cap: int) -> str:
@@ -209,22 +226,29 @@ def gray_concat_mode(ph: int, pw: int, cap: int) -> str:
 
 def finish_scan(words: torch.Tensor, bits: torch.Tensor,
                 overflow: torch.Tensor, nbh: int, nbw: int,
-                pad_ones: bool) -> bytes | None:
+                pad_ones: bool, rung_words: int | None = None,
+                stuff_on_device: bool = False) -> bytes | None:
     """Streams [cap, nb] + bits [nb] of an nbh x nbw grid in scan order
-    -> K8 + K9 (K10 past jpegtpu's resident budget) -> tail padding ->
-    one readback of (any overflow, total bits), then of the valid word
-    prefix -> stuffed scan bytes; None if `overflow` holds anywhere (the
-    caller retries at the next rung)."""
-    stream, total = concat_stream(words, bits, nbh, nbw)
+    -> K8 + K9 (K10 past jpegtpu's resident budget at rung_words words
+    per stream) -> tail padding -> one readback of (any overflow, total
+    bits), then of the valid word prefix -> stuffed scan bytes; None if
+    `overflow` holds anywhere (the caller retries at the next rung). With
+    stuff_on_device the stream is stuffed on its device
+    (stuff_bytes_device) and only the stuffed bytes are read back."""
+    stream, total = concat_stream(words, bits, nbh, nbw, rung_words)
     stream, total = apply_tail_padding(stream, total, pad_ones)
-    overflowed, total_bits = torch.stack(
+    if stuff_on_device:  # -> (stuffed bytes, their count)
+        stream, total = stuff_bytes_device(stream, total)
+    overflowed, count = torch.stack(
         [overflow.any().to(torch.int64), total]
     ).tolist()
     if overflowed:
         return None
-    nwords = (total_bits + 31) // 32
+    if stuff_on_device:
+        return stream[:count].cpu().numpy().tobytes()
+    nwords = (count + 31) // 32
     words_np = stream[:nwords].cpu().numpy().view(np.uint32)
-    return segments_from_streams(words_np[None], [total_bits])[0]
+    return segments_from_streams(words_np[None], [count])[0]
 
 
 def segments_from_streams(streams: np.ndarray, totals) -> list:
@@ -320,7 +344,6 @@ def encode_file(input_path: str, output_path: str,
     """BMP in, JPEG out: grayscale, or color for a color config. Returns
     the number of bytes written."""
     config = config or EncodeConfig()
-    config.check_supported()
     rgb = bmp.read(input_path)
     if config.n_components == 1:
         data = encode_grayscale(rgb, config, device=device)

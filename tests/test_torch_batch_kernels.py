@@ -175,7 +175,7 @@ def test_sharing_rules_match_jpegtpu(ph, pw):
             for ss, fy, fx in (("420", 2, 2), ("422", 1, 2), ("444", 1, 1)):
                 cph = -(-ph // (8 * fy)) * 8 * fy
                 cpw = -(-pw // (8 * fx)) * 8 * fx
-                assert batch.shares_color_tables(cph, cpw, ss, cap) == (
+                assert batch.color_raw_ok(cph, cpw, ss, cap) == (
                     jbatch._color_raw_ok(bsz, cph, cpw,
                                          JConfig(subsampling=ss), cap))
     nbw = pw // 8

@@ -4,6 +4,8 @@ paths' 3024 x 4032). Needs a CUDA card; skipped without one. Run on the
 card with:
   python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -o addopts=""
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -413,3 +415,121 @@ def test_encode_through_k10_matches_cpu_in_int32_mode(cuda, monkeypatch,
         "stream_concat_chunked"]
     assert _build.LAUNCHES["stream_concat"] == before["stream_concat"]
     assert got == encode(img, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("ss,nmch,nmcw", COLOR_SHAPES)
+@pytest.mark.parametrize("quality,cap", [(50, 8), (100, 8), (100, 16),
+                                         (100, 53)])
+def test_merge_streams_matches_plain(cuda, ss, nmch, nmcw, quality, cap):
+    """K6 against its plain version and K5 on the same K4 streams,
+    overflowed blocks (Q100 noise at caps 8 and 16) included."""
+    streams = _color_streams(cuda, ss, nmch, nmcw, quality, cap)
+    sm = merge.slot_major_streams(*streams, nmch, nmcw, ss)
+    before = _build.LAUNCHES["merge_streams"]
+    got = merge.merge_streams(*sm)
+    assert _build.LAUNCHES["merge_streams"] == before + 1
+    want = merge.merge_streams_plain(*sm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    k5 = merge.merge_mcu(*streams, nmch, nmcw, ss)
+    assert torch.equal(got[0], k5[0]) and torch.equal(got[1], k5[1])
+
+
+def test_merge_streams_refuses_cpu_and_other_dtypes(cuda):
+    w = torch.zeros((6, 8, 10), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        merge.merge_streams(w, torch.zeros((6, 10), dtype=torch.int32,
+                                           device=cuda))
+
+
+@pytest.mark.parametrize("kw,k6,k5", [
+    ({"subsampling": "420"}, True, False),  # 264 kernel rows: not raw
+    ({"subsampling": "420", "capacity_words_per_block": 16}, True, False),
+    ({"subsampling": "444", "quality": 100}, True, True),  # rungs 8-53
+    ({"subsampling": "422", "capacity_words_per_block": 76}, False, True),
+])
+def test_batch_k6_route_matches_cpu_in_int32_mode(cuda, kw, k6, k5):
+    """Color batches that jpegtpu merges with K6 (up to cap 16, past its
+    raw body) run K6 and not K5 on the card, byte-equal to the CPU path;
+    past cap 16 K5 runs."""
+    rng = np.random.default_rng(8)
+    yy, xx = np.mgrid[0:4112, 0:64]
+    smooth = (xx * 2 + yy // 8)[..., None] % 256
+    images = [np.clip(smooth + rng.normal(0, 4 + 200 * (
+        kw.get("quality") == 100), (4112, 64, 3)), 0, 255).astype(np.uint8)
+        for _ in range(2)]
+    cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32", **kw)
+    before = dict(_build.LAUNCHES)
+    got = jpegtpu_torch.encode_color_batch(images, cfg)
+    k6_runs = _build.LAUNCHES["merge_streams"] - before["merge_streams"]
+    k5_runs = _build.LAUNCHES["merge_mcu"] - before["merge_mcu"]
+    assert (k6_runs > 0, k5_runs > 0) == (k6, k5)
+    assert got == jpegtpu_torch.encode_color_batch(images, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    {"subsampling": "420", "capacity_words_per_block": 76},
+    {"capacity_words_per_block": 453},
+    {"subsampling": "420", "capacity_words_per_block": 76,
+     "optimize_huffman": True},
+    {"capacity_words_per_block": 453, "restart_interval": 3},
+])
+def test_first_rung_past_the_card_matches_cpu_in_int32_mode(cuda, kw):
+    """Rungs whose K8 segments would pass the card's shared memory run
+    the kernels at 53 words, with rung 8's bytes."""
+    rng = np.random.default_rng(9)
+    cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32", **kw)
+    color = cfg.n_components == 3
+    img = rng.integers(0, 256, (200, 264, 3) if color else (200, 264),
+                       np.uint8)
+    encode = (jpegtpu_torch.encode_color if color
+              else jpegtpu_torch.encode_grayscale)
+    got = encode(img, cfg)
+    assert got == encode(img, cfg, device="cpu")
+    assert got == encode(img, dataclasses.replace(
+        cfg, capacity_words_per_block=8))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"optimize_huffman": True}, {"subsampling": "420"},
+    {"subsampling": "420", "optimize_huffman": True},
+    {"restart_interval": 3}, {"subsampling": "422", "quality": 100},
+])
+def test_stuff_device_matches_host_stuffing(cuda, kw):
+    """stuff="device": stuffed on the card at the single-segment encodes,
+    the bytes of host stuffing."""
+    rng = np.random.default_rng(10)
+    cfg = jpegtpu_torch.EncodeConfig(stuff="device", **kw)
+    color = cfg.n_components == 3
+    img = rng.integers(0, 256, (96, 136, 3) if color else (96, 136),
+                       np.uint8)
+    encode = (jpegtpu_torch.encode_color if color
+              else jpegtpu_torch.encode_grayscale)
+    got = encode(img, cfg)
+    assert b"\xff\x00" in got
+    assert got == encode(img, dataclasses.replace(cfg, stuff="host"))
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("gray_batch", {"stuff": "device"}),
+    ("420_batch", {"stuff": "device", "subsampling": "420"}),
+    ("gray", {"dct_dtype": "float64"}),
+    ("420", {"dct_dtype": "float16", "subsampling": "420"}),
+])
+def test_configs_jpegtpu_reads_as_the_default(cuda, kind, kw):
+    """stuff="device" on a batch (ignored, as in jpegtpu) and float
+    dct_dtypes other than float32 (the float32 path) give the default's
+    bytes on the card."""
+    rng = np.random.default_rng(11)
+    cfg = jpegtpu_torch.EncodeConfig(**kw)
+    color = cfg.n_components == 3
+    images = [rng.integers(0, 256, (64, 96, 3) if color else (64, 96),
+                           np.uint8) for _ in range(3)]
+    base = jpegtpu_torch.EncodeConfig(subsampling=cfg.subsampling)
+    if kind.endswith("batch"):
+        encode = (jpegtpu_torch.encode_color_batch if color
+                  else jpegtpu_torch.encode_grayscale_batch)
+        assert encode(images, cfg) == encode(images, base)
+    else:
+        encode = (jpegtpu_torch.encode_color if color
+                  else jpegtpu_torch.encode_grayscale)
+        assert encode(images[0], cfg) == encode(images[0], base)

@@ -174,18 +174,26 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         jpegtpu_torch.grayscale_coefficients(img)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"subsampling": "420", "restart_interval": 4, "stuff": "device"}, "M10"),
-    ({"restart_interval": 4, "stuff": "device"}, "M10"),
-    ({"optimize_huffman": True, "stuff": "device"}, "M10"),
-    ({"stuff": "device"}, "M10"),
+@pytest.mark.parametrize("kw", [
+    pytest.param({"subsampling": "420", "restart_interval": 4,
+                  "stuff": "device"}, id="kw0-M10"),
+    pytest.param({"restart_interval": 4, "stuff": "device"}, id="kw1-M10"),
+    pytest.param({"optimize_huffman": True, "stuff": "device"},
+                 id="kw2-M10"),
+    pytest.param({"stuff": "device"}, id="kw3-M10"),
 ])
-def test_unported_configs_name_their_roadmap_item(kw, item):
+def test_unported_configs_name_their_roadmap_item(kw):
+    """The configs the port once refused, naming their ROADMAP.md item
+    (M10, stuff="device"), give jpegtpu's bytes: stuffed on the device
+    where jpegtpu reads `stuff` (single segment), ignored elsewhere."""
+    img = _gray(48, 64, seed=9)
     cfg = jpegtpu_torch.EncodeConfig(**kw)
-    encode = (jpegtpu_torch.encode_grayscale if cfg.n_components == 1
-              else jpegtpu_torch.encode_color)
-    with pytest.raises(NotImplementedError, match=item):
-        encode(_gray(16, 16), cfg, device="cpu")
+    color = cfg.n_components == 3
+    encode = (jpegtpu_torch.encode_color if color
+              else jpegtpu_torch.encode_grayscale)
+    jencode = jpegtpu.encode_color if color else jpegtpu.encode_grayscale
+    want = jencode(img, jpegtpu.EncodeConfig(entropy="host", **kw))
+    assert encode(img, cfg, device="cpu") == want
 
 
 def test_rejects_bad_images():

@@ -252,6 +252,11 @@ def test_restart_configs_need_cuda_by_default(monkeypatch, kw):
               else jpegtpu_torch.encode_color)
     with pytest.raises(RuntimeError, match="CUDA"):
         encode(_gray(16, 16), cfg)
-    with pytest.raises(NotImplementedError, match="M10"):
-        encode(_gray(16, 16), jpegtpu_torch.EncodeConfig(stuff="device", **kw),
-               device="cpu")
+    # stuff="device" (ROADMAP.md M10): restart segments stuff on the host,
+    # as in jpegtpu, which ignores the field there
+    jencode = (jpegtpu.encode_grayscale if cfg.n_components == 1
+               else jpegtpu.encode_color)
+    assert encode(_gray(16, 16), jpegtpu_torch.EncodeConfig(
+        stuff="device", **kw), device="cpu") == jencode(
+        _gray(16, 16), jpegtpu.EncodeConfig(stuff="device", entropy="host",
+                                            **kw))
