@@ -24,9 +24,13 @@ the configs that once failed (first rungs past K8's shared memory,
 dct_dtype float64 / float16, stuff="device"); and the color batch of 16
 images of 3024 x 4032 at 4:2:0, which merges its MCU streams by
 jpegtpu's slot-major route: K2, K3, K4, a gather, K6, K8, K11.
-For each path it holds every kernel against its plain PyTorch version at
-the path's shapes (K12 also at restart_interval 1 and with a ragged last
-segment; K8 and K11 also at the top rung), encodes end to end through
+Right after the build, one torch.profiler session counts the device
+kernels of one K12 and one K11 wrapper call (two and one). For each path
+it holds every kernel against its plain PyTorch version at the path's
+shapes (K12 also at restart_interval 1, with a ragged last segment, and
+on seeded streams at intervals 1, 2, 37 and n with both pads; K8 and K11
+also at the top rung, K11 also with the pad left 0, on a 2-image batch
+and on the K6 route, where it is timed too), encodes end to end through
 the entry point (launch counts reset just before and read just after),
 checks the bytes against the port's CPU path (a batch file also against
 its single-image encode), climbs the capacity ladder, and times each
@@ -239,14 +243,84 @@ def equal_streams(name: str, got, want) -> dict:
     return {"max_abs_err": int(np.abs(u32(got[0]) - u32(want[0])).max())}
 
 
+def seeded_streams(c: int, n: int, seed: int, lengths=None):
+    """n streams of c words on the card, zero past each one's bits, as K4
+    and K5 store them: (words [c, n] int32, bits [n] int32). Bit counts
+    are drawn from `lengths` (default: 0, 1-31, multiples of a byte and
+    of a word, c * 32 and past it, and some of any length)."""
+    rng = np.random.default_rng(seed)
+    if lengths is None:
+        lengths = np.concatenate([
+            np.arange(0, 32), [8, 16, 24, 32, 40, 64, c * 32, c * 32 + 9],
+            rng.integers(0, c * 32 + 1, 8)])
+    bits = rng.choice(lengths, n)
+    valid = (np.minimum(bits, 32 * c)[None, :]
+             - 32 * np.arange(c)[:, None]).clip(0, 32)
+    keep = ((1 << valid) - 1) << (32 - valid)
+    words = rng.integers(0, 2**32, (c, n), dtype=np.int64) & keep
+    return (torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda(),
+            torch.from_numpy(bits.astype(np.int32)).cuda())
+
+
+def wrapper_launches(say) -> None:
+    """One call each of K12's and K11's wrappers in one torch.profiler
+    session (the run's only one): the device kernels each launched, and
+    their device microseconds, from key_averages(). K12 runs on 190,512
+    seeded streams of 8 words at interval 504 (the 3024 x 4032 gray
+    restart grid), K11 on 64 images of the gray batch's 64 row segments
+    of 576 words. Fails if the profiler sees device events and they are
+    not one K11 launch and two K12 launches; says so if it sees none."""
+    from torch.profiler import ProfilerActivity, profile
+    words, bits = seeded_streams(8, (H // 8) * (W // 8), 5)
+    sw, sb = seeded_streams(576, 64 * 64, 6, np.arange(0, 4000))
+    segs = sw.T.contiguous()
+    calls = {"stitch_segments": lambda: stitch.stitch_segments(words, bits,
+                                                               W // 8),
+             "stream_concat_rows": lambda: concat.stream_concat_rows(
+                 segs, sb, 64, 64 * 64 * 8)}
+    for fn in calls.values():  # built and loaded before the session
+        fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in calls.values():
+                fn()
+                torch.cuda.synchronize()
+        seen = {e.key: (e.count, e.device_time_total / e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+    except Exception as e:  # the profiler itself failed on this machine
+        say("device_launches", profiler_error=repr(e))
+        return
+    if not seen:
+        say("device_launches", note="the profiler shows no device events")
+        return
+    owner = {"stitch_segments": ("stitch_scan_kernel",
+                                 "stitch_segments_kernel"),
+             "stream_concat_rows": ("stream_concat_rows_kernel",
+                                    "rows_scan_kernel")}
+    mine = {k: w for k in seen for w, tags in owner.items()
+            if any(t in k for t in tags)}
+    counts = {w: sum(seen[k][0] for k in seen if mine.get(k) == w)
+              for w in owner}
+    other = sum(c for k, (c, _) in seen.items() if k not in mine)
+    say("device_launches", launches=counts, other_device_events=other,
+        kernels={k: {"count": c, "device_us": us}
+                 for k, (c, us) in seen.items()})
+    check(counts == {"stitch_segments": 2, "stream_concat_rows": 1}
+          and other == 0,
+          f"launches per wrapper call: {counts}, other events {other}")
+
+
 def time_kernels(specs, launches: dict, results: dict, path: str, shape,
                  say) -> list:
     """Device ms of each kernel and of its plain version, beside the
     kernel's bound: the larger of its bytes (each input read once, each
     output written once) over the memory rate and its operations over the
-    float32 rate."""
+    float32 rate. A spec may end with a dict of more fields for its
+    entry."""
     entries = []
-    for name, src, replaces, kern, plain, nbytes, ops in specs:
+    for name, src, replaces, kern, plain, nbytes, ops, *extra in specs:
         ms = time_ms(kern)
         plain_ms = time_ms(plain, reps=3)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -258,6 +332,7 @@ def time_kernels(specs, launches: dict, results: dict, path: str, shape,
             "plain_ms": plain_ms, "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": None, "path": path, "shape": shape, "ok": True,
+            **(extra[0] if extra else {}),
         }
         entries.append(entry)
         say("kernel_time", bound_bytes=nbytes, bound_ops=ops, **entry)
@@ -482,7 +557,7 @@ def restart_stage_breakdown(img, cfg, reps: int = 5) -> dict:
         t = mark("K4_pack", t)
         stream, seg_tot, total = stitch.stitch_segments(
             words, bits, cfg.restart_interval, cfg.pad_ones)
-        t = mark("K12_stitch_with_prefix_sums", t)
+        t = mark("K12_stitch_scan_and_segments", t)
         ov, total_bits = torch.stack(
             [(bits > cap * 32).any().to(torch.int64), total]).tolist()
         t = mark("d2h_overflow_and_total", t)
@@ -587,6 +662,9 @@ def restart_and_two_pass_phases(dev, say) -> list:
             c_streams = (mw, mb)
     say("stitch_vs_plain", shape=[H, W], **k12)
 
+    # --- 11b. K12's edge cases: seeded bit counts, intervals 1, 2, 37, n
+    say("stitch_edge_cases_vs_plain", **stitch_edge_cases())
+
     # --- 12. K4 with the images' optimal tables against its plain version
     dcd_g = dc_differences(lv[0])
     specs_g, (huff_g,) = pipeline.optimal_tables(
@@ -616,11 +694,12 @@ def restart_and_two_pass_phases(dev, say) -> list:
     gray_k = ("transform", "encode_blocks")
     color_k = ("transform_rgb_y", "transform_rgb_chroma", "encode_blocks",
                "merge_mcu")
+    k12_k = ("stitch_scan", "stitch_segments")
     runs = [
-        ("gray_restart", cfg_g, img, gray_k + ("stitch_segments",)),
-        ("420_restart", cfg_c, rgb_img, color_k + ("stitch_segments",)),
+        ("gray_restart", cfg_g, img, gray_k + k12_k),
+        ("420_restart", cfg_c, rgb_img, color_k + k12_k),
         ("gray_2pass", cfg_g2, img, gray_k + ("merge_rows", "stream_concat")),
-        ("420_restart_2pass", cfg_c2, rgb_img, color_k + ("stitch_segments",)),
+        ("420_restart_2pass", cfg_c2, rgb_img, color_k + k12_k),
     ]
     cpu = torch.device("cpu")
     launches = {}
@@ -705,16 +784,20 @@ def restart_and_two_pass_phases(dev, say) -> list:
         **two_pass_stage_breakdown(img, cfg_g2))
 
     # --- 16. timings and bounds -----------------------------------------
-    def k12_spec(words, bits, seg_len):
+    def k12_spec(path, words, bits, seg_len):
+        """K12's bound as counted since PR 3 (the valid output words), and
+        beside it the bound with the whole buffer written once."""
         stream, seg_tot, total = stitch.stitch_segments(words, bits, seg_len)
         valid = int(((bits.long() + 31) // 32).sum())
+        inputs = valid * 4 + bits.numel() * 4 + seg_tot.numel() * 4
+        whole = inputs + stream.numel() * 4
         return ("stitch_segments", "jpegtpu_torch/csrc/stitch.cu",
                 "jpegtpu/entropy/pallas_concat.py:553",
                 lambda: stitch.stitch_segments(words, bits, seg_len),
                 lambda: stitch.stitch_segments_plain(words, bits, seg_len),
-                valid * 4 + bits.numel() * 4 + (int(total) + 31) // 32 * 4
-                + seg_tot.numel() * 4,
-                valid * 2)
+                inputs + (int(total) + 31) // 32 * 4, valid * 2,
+                {"launches_scan": launches[path]["stitch_scan"],
+                 "bound_ms_whole_buffer": whole / HBM_BYTES_PER_S * 1e3})
 
     def k4_spec(pairs):
         nb = sum(lev.shape[1] for lev, _, _ in pairs)
@@ -729,9 +812,11 @@ def restart_and_two_pass_phases(dev, say) -> list:
 
     kernels = []
     for path, spec, result in (
-        ("gray_restart", k12_spec(*g_streams, cfg_g.restart_interval),
+        ("gray_restart", k12_spec("gray_restart", *g_streams,
+                                  cfg_g.restart_interval),
          k12[f"gray_{nbw}"]),
-        ("420_restart", k12_spec(*c_streams, cfg_c.restart_interval),
+        ("420_restart", k12_spec("420_restart", *c_streams,
+                                 cfg_c.restart_interval),
          k12[f"420_{nmcw}"]),
         ("gray_2pass", k4_spec([(lv, dcd_g, huff_g)]), rt["gray"]),
         ("420_restart_2pass",
@@ -743,9 +828,45 @@ def restart_and_two_pass_phases(dev, say) -> list:
                                 path, [H, W], say)
     dcd1 = dc_differences(lv[0], 1)
     w1, b1 = pack.encode_blocks(lv, dcd1, state.huff, cap)
+    valid1 = int(((b1.long() + 31) // 32).sum())
+    s1, st1, tot1 = stitch.stitch_segments(w1, b1, 1)
+    inputs1 = (valid1 + b1.numel() + st1.numel()) * 4
     say("kernel_time", name="stitch_segments", path="gray_restart_1",
-        shape=[H, W], ms=time_ms(lambda: stitch.stitch_segments(w1, b1, 1)))
+        shape=[H, W], ms=time_ms(lambda: stitch.stitch_segments(w1, b1, 1)),
+        plain_ms=time_ms(lambda: stitch.stitch_segments_plain(w1, b1, 1),
+                         reps=3),
+        bound_ms=(inputs1 + (int(tot1) + 31) // 32 * 4) / HBM_BYTES_PER_S
+        * 1e3,
+        bound_ms_whole_buffer=(inputs1 + s1.numel() * 4) / HBM_BYTES_PER_S
+        * 1e3)
     return kernels
+
+
+def stitch_edge_cases() -> dict:
+    """K12 against its plain version, whole buffers compared, on 190,512
+    seeded streams of 8 words (the 3024 x 4032 gray grid): bit counts
+    0, 1-31, multiples of a byte and of a word, 256 and past it
+    (clamped), at intervals 1, 2, 37 and n, with both pads. Returns, for
+    each interval, how many segment totals end on a byte and on a word."""
+    c, n = 8, (H // 8) * (W // 8)
+    words, bits = seeded_streams(c, n, 17)
+    out = {}
+    for seg_len in (1, 2, 37, n):
+        err = 0
+        for pad_ones in (True, False):
+            got = stitch.stitch_segments(words, bits, seg_len, pad_ones)
+            want = stitch.stitch_segments_plain(words, bits, seg_len,
+                                                pad_ones)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"K12 edge cases, interval {seg_len}, pad_ones "
+                  f"{pad_ones}: kernel != plain")
+            err = max(err, int(np.abs(u32(got[0]) - u32(want[0])).max()))
+        _, seg_bits, _, _ = stitch.segment_offsets(bits, seg_len, 256)
+        out[f"interval_{seg_len}"] = {
+            "max_abs_err": err, "segments": int(got[1].shape[0]),
+            "ending_on_a_byte": int((seg_bits % 8 == 0).sum()),
+            "ending_on_a_word": int((seg_bits % 32 == 0).sum())}
+    return out
 
 
 def batch_images(n: int, h: int, w: int, color: bool, seed: int) -> np.ndarray:
@@ -829,7 +950,7 @@ def batch_stage_breakdown(images: list, cfg, reps: int = 5) -> dict:
         streams, totals = concat.stream_concat_rows(
             segs, seg_bits, segs.shape[0] // n, words.shape[0] * nbh * nbw,
             cfg.pad_ones)
-        t = mark("K11_stream_concat_rows_with_prefix_sums_and_pad", t)
+        t = mark("K11_stream_concat_rows_scans_and_pad_inside", t)
         head = torch.cat([over.any().to(torch.int64).reshape(1),
                           totals]).tolist()
         t = mark("d2h_overflow_and_totals", t)
@@ -916,6 +1037,16 @@ def batch_phases(dev, say) -> list:
               f"batch {kind}: the batch overflowed cap 8")
         results, ws, (segs, seg_bits), k11_args = k8_k11(
             words, bits, n, nbh, nbw, f"batch {kind} cap 8")
+        # K11 with the pad left 0, and on a 2-image batch
+        per = k11_args[2]
+        k11_edge = {}
+        for name, args in (
+                ("pad_zeros", k11_args[:4] + (False,)),
+                ("two_images", (segs[:2 * per], seg_bits[:2 * per], per,
+                                k11_args[3], True))):
+            k11_edge[name] = equal_streams(
+                f"K11 {name} batch {kind}", concat.stream_concat_rows(*args),
+                concat.stream_concat_rows_plain(*args))
         noise = torch.randint(0, 256, [TOP_N] + shape[1:], generator=g,
                               device=dev, dtype=torch.uint8)
         cfg100 = dataclasses.replace(cfg, quality=100, dct_dtype="int32")
@@ -927,6 +1058,7 @@ def batch_phases(dev, say) -> list:
         say("batch_kernels_vs_plain", path=f"batch_{kind}", shape=shape,
             segment_width=ws, segments=int(segs.shape[0]),
             segment_words=int(segs.shape[1]), cap8=results,
+            k11_edge_cases=k11_edge,
             top_rung={"cap": top, "images": TOP_N, "content": "Q100 noise",
                       "segment_words": int(segs_t.shape[1]), **top_res})
         del segs_t
@@ -1457,9 +1589,22 @@ def batch_k6_phases(dev, say) -> list:
     check(all(torch.equal(a, b) for a, b in zip(
         got, merge.merge_mcu(wy, by, wc, bc, n * nmch, nmcw, "420"))),
         "batch_k6: K6 != K5 on the same streams")
-    del got, wy, by, wc, bc
+    del wy, by, wc, bc
+    # K11 on the route's row segments (K8 at ws 128), both pads
+    segs6, sb6 = concat.merge_rows(*got, n * nmch, nmcw,
+                                   batch.segment_width(nmcw))
+    k11_args = (segs6, sb6, segs6.shape[0] // n,
+                got[0].shape[0] * nmch * nmcw, True)
+    for pad_ones in (False, True):
+        args = k11_args[:4] + (pad_ones,)
+        results["stream_concat_rows"] = equal_streams(
+            f"K11 batch_k6 pad_ones {pad_ones}",
+            concat.stream_concat_rows(*args),
+            concat.stream_concat_rows_plain(*args))
+    del got
     say("batch_k6_kernels_vs_plain", shape=[n, h, w, 3], mcus=m,
-        slot_major=list(sw.shape), k6_equals_k5=True, **results)
+        slot_major=list(sw.shape), k6_equals_k5=True,
+        segments=list(segs6.shape), **results)
 
     # --- 31. end to end through encode_color_batch -----------------------
     for k in _build.LAUNCHES:
@@ -1521,6 +1666,7 @@ def batch_k6_phases(dev, say) -> list:
     # --- 33. K6 device time and bound -----------------------------------
     e = sw.shape[0]
     valid_words = int(((sb.long().clamp(max=cap * 32) + 31) // 32).sum())
+    valid_seg_words = int(((sb6.long() + 31) // 32).sum())
     specs_t = [
         ("merge_streams", "jpegtpu_torch/csrc/merge.cu",
          "jpegtpu/entropy/pallas_pack.py:683",
@@ -1528,10 +1674,16 @@ def batch_k6_phases(dev, say) -> list:
          lambda: merge.merge_streams_plain(sw, sb),
          valid_words * 4 + e * m * 4 + e * cap * m * 4 + m * 4,
          valid_words * 2),
+        ("stream_concat_rows", "jpegtpu_torch/csrc/concat.cu",
+         "jpegtpu/entropy/pallas_concat.py:412",
+         lambda: concat.stream_concat_rows(*k11_args),
+         lambda: concat.stream_concat_rows_plain(*k11_args),
+         valid_seg_words * 4 + sb6.numel() * 4 + n * k11_args[3] * 4 + n * 8,
+         valid_seg_words * 2),
     ]
     entries = time_kernels(specs_t, launches, results, "batch_k6",
                            [n, h, w, 3], say)
-    del sw, sb
+    del sw, sb, segs6, sb6, k11_args
     torch.cuda.empty_cache()
     return entries
 
@@ -1564,6 +1716,9 @@ def main() -> int:
         ptxas={k: [ln.strip() for ln in v.splitlines()
                    if "registers" in ln or "spill" in ln]
                for k, v in reports.items()})
+
+    # --- 1b. device launches of one K12 and one K11 wrapper call ---------
+    wrapper_launches(say)
 
     # --- 2. each kernel against its plain version, main-path shapes ----
     cfg = EncodeConfig()

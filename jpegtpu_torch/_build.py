@@ -29,7 +29,7 @@ KERNEL_SOURCES = ("transform", "pack", "merge", "concat", "stitch")
 LAUNCHES = {"transform": 0, "transform_rgb_y": 0, "transform_rgb_chroma": 0,
             "encode_blocks": 0, "pack_blocks": 0, "merge_mcu": 0,
             "merge_streams": 0, "merge_rows": 0, "stream_concat": 0, "stream_concat_chunked": 0,
-            "stream_concat_rows": 0, "stitch_segments": 0}
+            "stream_concat_rows": 0, "stitch_scan": 0, "stitch_segments": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -52,15 +52,39 @@
 //   atomicOr on its first and last word, which neighbouring tiles share.
 //   So global memory sees each stream word once, and one launch does what
 //   the TPU does in a kernel and an epilogue.
-// - C: B's body with each segment placed in its own image's slab at its
-//   offset inside the image (one flat int64 scan in the wrapper, minus the
-//   image's base), so images never share a word; the thread that handles
-//   an image's last segment also ORs the 1s that pad its final byte, a bit
-//   no segment owns wholly, so no plain store races with it.
+// - C: every slab word is written once, by a plain coalesced store (16
+//   bytes where the slab is aligned): no zero-fill, no global atomics, no
+//   prefix sums outside the launch. The slabs are 134-201 MB at the
+//   batch's 1024 x 512 x 512 and the segments' valid words a tenth of
+//   that, so the slab writes bound it. One block per (image, tile of
+//   slab words), image-major; the tile grows with the image's segment
+//   count P (rows_tile_words in entropy/concat.py), so each block's
+//   words outweigh the scan it repeats, and shrinks while the grid
+//   would leave SMs idle (a 2-image batch). The block scans its image's P
+//   bit counts in shared memory (int64 inclusive ends), which gives each
+//   segment's offset and the image's total; block (image, 0) writes the
+//   total, rounded up to the byte. A tile past the image's total (most
+//   of a slab: its words are C a block, its bits ~1.5 words a block)
+//   learns the total from a warp sum and stores zeros with no scan and
+//   no barrier. For each of its words d, a thread finds the segment
+//   holding bit 32 d by binary search and funnel-shifts that segment's
+//   words, and those of the following segments, until 32 bits are
+//   covered (empty segments and segments shorter than a word share
+//   words); the bits from the total to the byte get the pad's 1s in the
+//   same store, and words past it are 0. The segments' valid words are
+//   read about once, the bit counts from L2. What keeps it above its
+//   bound is that word building: a chain of dependent shared-memory and
+//   global reads per word in the tiles that hold an image's bits, not
+//   the slab's bytes. The TPU's lane-roll deposits are VMEM tiling and
+//   have no counterpart. An image of more segments than the opt-in
+//   shared memory holds (some 29,000, a batch of 200 MPix images) takes
+//   a second launch first, which writes the scans to global scratch.
 // Shift counts are kept in [0, 31]: a shift by 32 is undefined in CUDA.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "bitjoin.cuh"
 
 namespace {
 
@@ -211,29 +235,167 @@ stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
   }
 }
 
+// The sum of x over the block's threads before this one (blockDim.x a
+// multiple of 32); *total, if given, gets the sum over all of them.
+// warp_tot holds 32 values of shared memory.
+__device__ long long block_exclusive_sum(long long x, long long* warp_tot,
+                                         long long* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  long long inc = x;
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) warp_tot[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    long long w = lane < nwarps ? warp_tot[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < nwarps) warp_tot[lane] = w;
+  }
+  __syncthreads();
+  const long long before = warp ? warp_tot[warp - 1] : 0;
+  if (total) *total = warp_tot[nwarps - 1];
+  __syncthreads();  // warp_tot is reused by the next call
+  return before + inc - x;
+}
+
+// K11. Inclusive scan of one image's P bit counts into inc[0, P), by the
+// block: each thread sums a run of ceil(P / blockDim.x) counts, one block
+// scan of the run sums, then each thread writes its run's running sums.
+__device__ void scan_counts(const int* __restrict__ bits, int P,
+                            long long* inc, long long* warp_tot) {
+  for (int i = threadIdx.x; i < P; i += blockDim.x) inc[i] = bits[i];
+  __syncthreads();
+  const int run = (P + blockDim.x - 1) / blockDim.x;
+  const int r0 = min(P, (int)threadIdx.x * run), r1 = min(P, r0 + run);
+  long long sum = 0;
+  for (int i = r0; i < r1; ++i) sum += inc[i];
+  long long acc = block_exclusive_sum(sum, warp_tot, nullptr);
+  for (int i = r0; i < r1; ++i) {
+    acc += inc[i];
+    inc[i] = acc;
+  }
+  __syncthreads();
+}
+
+// Word d of an image's stream: the bits of its segments (segment s holds
+// bits [inc[s - 1], inc[s]) of the image; its words at src + s * seg_words)
+// that fall in [32 d, 32 d + 32), then the pad up to `padded`, then zeros.
+// s is the first segment whose end passes bit 32 d, or P; it is left at
+// the segment where the word ended, for word d + 1.
+__device__ __forceinline__ unsigned rows_word(
+    long long d, int& s, const long long* inc, int P,
+    const unsigned* __restrict__ src, int seg_words, long long padded,
+    int pad_ones) {
+  long long pos = 32 * d;
+  const long long wend = pos + 32;
+  unsigned v = 0u;
+  while (pos < wend) {
+    while (s < P && inc[s] <= pos) ++s;  // skips empty segments
+    if (s == P) {  // past the image's bits: its pad, then zeros
+      if (pad_ones && pos < padded) {
+        v |= jt::top_mask(min(padded, wend) - pos) >> (pos - 32 * d);
+      }
+      break;
+    }
+    const long long off = s ? inc[s - 1] : 0;  // <= pos
+    const long long stop = min(inc[s], wend);
+    const unsigned* seg = src + (size_t)s * seg_words;
+    v |= jt::take_bits([seg](long long k) { return seg[k]; },
+                       (long long)seg_words, pos - off, stop - pos)
+         >> (pos - 32 * d);
+    pos = stop;
+  }
+  return v;
+}
+
+// One block per (image, tile of tile_words slab words), image-major. The
+// image's scan is in shared memory (kScanInSmem) or, for an image of more
+// segments than shared memory holds, in inc_global from rows_scan_kernel.
+template <bool kScanInSmem>
 __global__ void __launch_bounds__(kStreamThreads)
 stream_concat_rows_kernel(const unsigned* __restrict__ segs,
                           const int* __restrict__ seg_bits,
-                          const long long* __restrict__ offs,
-                          const long long* __restrict__ totals,
-                          int seg_words, int segs_per_image, int pad_ones,
-                          unsigned* __restrict__ out, int slab_words) {
-  const int s = blockIdx.x;
-  const int img = s / segs_per_image;
-  unsigned* slab = out + (size_t)img * slab_words;
-  const bool last = s % segs_per_image == segs_per_image - 1;
-  if (pad_ones && threadIdx.x == 0 && last) {
-    const long long total = totals[img];
-    const int padlen = (int)((-total) & 7);
-    const long long w = total >> 5;
-    if (padlen && w < slab_words) {
-      // the pad completes the byte holding bit `total`: off + padlen <= 32
-      const int off = (int)(total & 31);
-      atomicOr(&slab[w], ((1u << padlen) - 1u) << (32 - off - padlen));
+                          const long long* __restrict__ inc_global,
+                          int seg_words, int segs_per_image,
+                          long long tile_words, long long tiles, int pad_ones,
+                          unsigned* __restrict__ out, long long slab_words,
+                          long long* __restrict__ totals) {
+  extern __shared__ long long inc_smem[];
+  __shared__ long long warp_tot[32];
+  const long long img = blockIdx.x / tiles;
+  const long long tile = blockIdx.x % tiles;
+  const int P = segs_per_image;
+  const size_t s0 = (size_t)img * P;
+  // The image's total, summed by each warp on its own: most tiles lie past
+  // it and store zeros with no barrier and no scan.
+  long long total = 0;
+  if (kScanInSmem) {
+    for (int i = threadIdx.x & 31; i < P; i += 32) total += seg_bits[s0 + i];
+    for (int o = 16; o; o >>= 1) {
+      total += __shfl_xor_sync(0xffffffffu, total, o);
     }
+  } else {
+    total = inc_global[s0 + P - 1];
   }
-  place_segment(segs + (size_t)s * seg_words, seg_words, offs[s],
-                seg_bits[s], slab, slab_words);
+  const long long padded = (total + 7) & ~7LL;
+  if (tile == 0 && threadIdx.x == 0) totals[img] = padded;
+  unsigned* slab = out + (size_t)img * slab_words;
+  const long long lo = tile * tile_words;
+  const long long hi = min(lo + tile_words, slab_words);
+  if (32 * lo >= padded) {
+    jt::zero_words(slab, lo, hi);
+    return;
+  }
+  const long long* inc;
+  if (kScanInSmem) {
+    scan_counts(seg_bits + s0, P, inc_smem, warp_tot);
+    inc = inc_smem;
+  } else {
+    inc = inc_global + s0;
+  }
+  const unsigned* src = segs + s0 * seg_words;
+  for (long long g = jt::first_group(lo, jt::line_phase(slab)) +
+                     4LL * threadIdx.x;
+       g < hi; g += 4LL * blockDim.x) {
+    const long long d0 = max(g, lo), d1 = min(g + 4, hi);
+    unsigned v[4] = {0u, 0u, 0u, 0u};
+    if (32 * d0 < padded) {
+      int s = jt::upper_bound(inc, P, 32 * d0);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        if (d0 + w < d1) {
+          v[w] = rows_word(d0 + w, s, inc, P, src, seg_words, padded,
+                           pad_ones);
+        }
+      }
+    }
+    jt::store_words(slab, d0, (int)(d1 - d0), v);
+  }
+}
+
+// K11's scan for images of more segments than shared memory holds: one
+// block per image writes its inclusive scan to inc_out, in chunks of
+// blockDim.x with a running carry.
+__global__ void __launch_bounds__(kStreamThreads)
+rows_scan_kernel(const int* __restrict__ seg_bits, int segs_per_image,
+                 long long* __restrict__ inc_out) {
+  __shared__ long long warp_tot[32];
+  const size_t s0 = (size_t)blockIdx.x * segs_per_image;
+  long long carry = 0;
+  for (int c = 0; c < segs_per_image; c += blockDim.x) {
+    const int i = c + threadIdx.x;
+    const long long x = i < segs_per_image ? seg_bits[s0 + i] : 0;
+    long long chunk = 0;
+    const long long ex = block_exclusive_sum(x, warp_tot, &chunk);
+    if (i < segs_per_image) inc_out[s0 + i] = carry + ex + x;
+    carry += chunk;
+  }
 }
 
 }  // namespace
@@ -320,17 +482,43 @@ extern "C" int jt_stream_concat_chunked(const unsigned* segs,
   return (int)cudaGetLastError();
 }
 
+// One launch: blocks of tile_words slab words, each image's scan in shared
+// memory. Where one image's P int64 sums do not fit the device's opt-in
+// shared memory (the wrapper then passes inc_scratch, [nseg] int64), two:
+// rows_scan_kernel writes every image's scan there first, and the joining
+// blocks search it in L2.
 extern "C" int jt_stream_concat_rows(const unsigned* segs,
                                      const int* seg_bits,
-                                     const long long* offs,
-                                     const long long* totals, int nseg,
+                                     long long* inc_scratch, int nseg,
                                      int seg_words, int segs_per_image,
-                                     int pad_ones, unsigned* out,
-                                     int slab_words, cudaStream_t stream) {
-  if (nseg > 0) {
-    stream_concat_rows_kernel<<<nseg, kStreamThreads, 0, stream>>>(
-        segs, seg_bits, offs, totals, seg_words, segs_per_image, pad_ones,
-        out, slab_words);
+                                     long long tile_words, int pad_ones,
+                                     unsigned* out, long long slab_words,
+                                     long long* totals, cudaStream_t stream) {
+  if (nseg > 0 && segs_per_image > 0 && tile_words > 0) {
+    const long long n_images = nseg / segs_per_image;
+    const long long tiles =
+        max(1LL, (slab_words + tile_words - 1) / tile_words);
+    const unsigned blocks = (unsigned)(n_images * tiles);
+    if (inc_scratch) {
+      rows_scan_kernel<<<(unsigned)n_images, kStreamThreads, 0, stream>>>(
+          seg_bits, segs_per_image, inc_scratch);
+      stream_concat_rows_kernel<false>
+          <<<blocks, kStreamThreads, 0, stream>>>(
+              segs, seg_bits, inc_scratch, seg_words, segs_per_image,
+              tile_words, tiles, pad_ones, out, slab_words, totals);
+    } else {
+      const size_t smem = (size_t)segs_per_image * sizeof(long long);
+      if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            stream_concat_rows_kernel<true>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+      }
+      stream_concat_rows_kernel<true>
+          <<<blocks, kStreamThreads, smem, stream>>>(
+              segs, seg_bits, nullptr, seg_words, segs_per_image, tile_words,
+              tiles, pad_ones, out, slab_words, totals);
+    }
   }
   return (int)cudaGetLastError();
 }

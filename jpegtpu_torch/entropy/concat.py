@@ -28,7 +28,8 @@ the OR happens in the same launch. Both write the same stream.
 
 A batch stacks its images vertically, so image i owns a run of whole
 block rows and so a run of segments; K11 lays each image's segments back
-to back in a slab of its own.
+to back in a slab of its own: each thread block scans its image's bit
+counts and builds its tile of slab words from the segments covering them.
 """
 from __future__ import annotations
 
@@ -296,11 +297,11 @@ def column_groups(nbw: int) -> int:
 
 
 def image_offsets(seg_bits: torch.Tensor, segs_per_image: int):
-    """Plain torch prefix sums shared by K11 and its plain version:
-    seg_bits [S] -> (each segment's bit offset inside its image [S] int64,
-    each image's total bits [B] int64, before tail padding). One flat scan
-    over every segment, minus each image's base (a segmented scan of many
-    short rows is slow on the card)."""
+    """Plain torch prefix sums of K11's plain version: seg_bits [S] ->
+    (each segment's bit offset inside its image [S] int64, each image's
+    total bits [B] int64, before tail padding). One flat scan over every
+    segment, minus each image's base. (The kernel scans each image's bit
+    counts itself, in shared memory.)"""
     inc = torch.cumsum(seg_bits, 0, dtype=torch.int64)
     ends = inc[segs_per_image - 1::segs_per_image]
     base = torch.nn.functional.pad(ends[:-1], (1, 0))
@@ -317,6 +318,29 @@ def _check_rows(segs: torch.Tensor, seg_bits: torch.Tensor,
                          f"of {segs_per_image} segments")
 
 
+ROWS_THREADS = 256  # K11's thread block (csrc/concat.cu kStreamThreads)
+
+
+def rows_tile_words(segs_per_image: int, n_images: int, slab_words: int,
+                    sms: int) -> int:
+    """Slab words per K11 thread block: 4096 for every 512 segments of an
+    image (each block scans its image's bit counts, so its words should
+    outweigh that scan), halved down to 1024 while the grid would hold
+    fewer than two blocks per SM."""
+    tile = 4096 * -(-segs_per_image // 512)
+    while (tile > 4 * ROWS_THREADS
+           and n_images * -(-slab_words // tile) < 2 * sms):
+        tile //= 2
+    return tile
+
+
+def rows_scan_fits(segs_per_image: int, smem_bytes: int) -> bool:
+    """Whether K11 keeps an image's scan (an int64 per segment, beside
+    the kernel's static 256 B) in smem_bytes of shared memory; past that
+    it writes the scans to global scratch first, a second launch."""
+    return segs_per_image * 8 + 256 <= smem_bytes
+
+
 def stream_concat_rows(segs: torch.Tensor, seg_bits: torch.Tensor,
                        segs_per_image: int, slab_words: int,
                        pad_ones: bool = True):
@@ -324,10 +348,12 @@ def stream_concat_rows(segs: torch.Tensor, seg_bits: torch.Tensor,
     in scan order, image after image -> (streams [B, slab_words] int32,
     total bits [B] int64 with the tail padding): image i's stream is its
     segments back to back, its final partial byte padded with 1s (T.81)
-    or left 0s, and its total rounded up to the byte.
+    or left 0s, and its total rounded up to the byte. Segment words past
+    a segment's bits are zero, as K8 writes them.
 
-    On CUDA tensors this launches csrc/concat.cu (stream_concat_rows, which
-    ORs the pad too) into a zeroed output; on CPU tensors it runs
+    On CUDA tensors this launches csrc/concat.cu (stream_concat_rows: one
+    launch writes every slab word once and each total, its scans inside;
+    two for an image past `rows_scan_fits`); on CPU tensors it runs
     `stream_concat_rows_plain`."""
     _check_rows(segs, seg_bits, segs_per_image)
     if segs.device.type == "cpu":
@@ -335,17 +361,25 @@ def stream_concat_rows(segs: torch.Tensor, seg_bits: torch.Tensor,
                                         slab_words, pad_ones)
     _build.require_cuda(segs, "segs", torch.int32)
     _build.require_cuda(seg_bits, "seg_bits", torch.int32)
-    offs, totals = image_offsets(seg_bits, segs_per_image)
-    out = torch.zeros((totals.shape[0], slab_words), dtype=torch.int32,
-                      device=segs.device)
-    P, I = ctypes.c_void_p, ctypes.c_int
+    dev = segs.device
+    nseg, sw = segs.shape
+    n_images = nseg // segs_per_image
+    out = torch.empty((n_images, slab_words), dtype=torch.int32, device=dev)
+    totals = torch.empty((n_images,), dtype=torch.int64, device=dev)
+    scratch = (None if rows_scan_fits(segs_per_image, _smem_optin(dev))
+               else torch.empty((nseg,), dtype=torch.int64, device=dev))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     _build.launch(
-        "concat", "stream_concat_rows", (P, P, P, P, I, I, I, I, P, I),
-        segs.data_ptr(), seg_bits.data_ptr(), offs.data_ptr(),
-        totals.data_ptr(), segs.shape[0], segs.shape[1], segs_per_image,
-        int(pad_ones), out.data_ptr(), slab_words, device=segs.device,
+        "concat", "stream_concat_rows", (P, P, P, I, I, I, L, I, P, L, P),
+        segs.data_ptr(), seg_bits.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), nseg, sw,
+        segs_per_image,
+        rows_tile_words(segs_per_image, n_images, slab_words, sms),
+        int(pad_ones), out.data_ptr(), slab_words, totals.data_ptr(),
+        device=dev,
     )
-    return out, (totals + 7) & -8
+    return out, totals
 
 
 def stream_concat_rows_plain(segs: torch.Tensor, seg_bits: torch.Tensor,

@@ -13,10 +13,11 @@ entropy.host.scan_from_words over the valid word prefix with
 seg_bytes = seg_tot / 8: it stuffs each segment and puts RSTn between.
 
 The card has no VMEM budget, so there is one chunk (jpegtpu's stitch_plan
-splits the buffer past 14 MB), and no stream is padded to 128-slot rows:
-the prefix sums are plain torch (int64, as jpegtpu computes them in XLA),
-and one kernel deposits every stream at its offset, so scratch grows with
-the streams, not with 128 * (cap + 1) words per segment.
+splits the buffer past 14 MB), and no stream is padded to 128-slot rows.
+The kernel's two launches do the prefix sums too: the offsets are a scan
+over the streams with one operator (csrc/stitch.cu), tiles of
+`stitch_tile` streams first composing their spans, then each tile
+placing its streams and writing the words that start in its bit range.
 """
 from __future__ import annotations
 
@@ -35,16 +36,15 @@ def stitch_words(n: int, c: int, n_seg: int) -> int:
 
 
 def segment_offsets(bits: torch.Tensor, seg_len: int, cap_bits: int):
-    """Plain torch prefix sums shared by the kernel and its plain version:
-    bits [n] -> (stream bit offsets [n] int64, seg_bits [S] int64,
-    seg_tot [S] int64 byte-aligned, total bits 0-dim int64). A stream's
-    bits count at most cap_bits: one past that overflowed and the encode
-    retries at a larger cap."""
+    """Plain torch prefix sums of K12's plain version: bits [n] ->
+    (stream bit offsets [n] int64, seg_bits [S] int64, seg_tot [S] int64
+    byte-aligned, total bits 0-dim int64). A stream's bits count at most
+    cap_bits: one past that overflowed and the encode retries at a larger
+    cap. (The kernel folds this scan into its two launches.)"""
     n = bits.shape[0]
     dev = bits.device
     b = bits.to(torch.int64).clamp(max=cap_bits)
-    # one scan over all streams (a segmented scan of many short rows is
-    # slow on the card), cut at each segment's last stream
+    # one scan over all streams, cut at each segment's last stream
     inc = torch.cumsum(b, dim=0)
     last = torch.arange(seg_len - 1, n + seg_len - 1, seg_len,
                         device=dev).clamp(max=n - 1)
@@ -60,9 +60,20 @@ def segment_offsets(bits: torch.Tensor, seg_len: int, cap_bits: int):
 
 
 def _check(words: torch.Tensor, bits: torch.Tensor, seg_len: int) -> None:
-    if words.dim() != 2 or bits.shape != (words.shape[1],) or seg_len < 1:
+    if (words.dim() != 2 or bits.shape != (words.shape[1],) or seg_len < 1
+            or words.shape[1] < 1):
         raise ValueError(f"words {tuple(words.shape)} / bits "
                          f"{tuple(bits.shape)} / seg_len {seg_len}")
+
+
+THREADS = 256  # K12's thread block (csrc/stitch.cu kThreads)
+
+
+def stitch_tile(n: int) -> int:
+    """Streams per K12 tile: a multiple of THREADS, at least 512, grown so
+    that a call has at most 512 tiles up to 4M streams (every tile's block
+    composes the spans of all tiles)."""
+    return THREADS * min(max(-(-n // (THREADS * 512)), 2), 32)
 
 
 def stitch_segments(words: torch.Tensor, bits: torch.Tensor, seg_len: int,
@@ -70,25 +81,36 @@ def stitch_segments(words: torch.Tensor, bits: torch.Tensor, seg_len: int,
     """-> (stream [out_words] int32, seg_tot [S] int32, total bits 0-dim
     int64).
 
-    On CUDA tensors this launches csrc/stitch.cu into a zeroed output; on
-    CPU tensors it runs `stitch_segments_plain`."""
+    On CUDA tensors this launches csrc/stitch.cu twice, its scan inside:
+    stitch_scan (each tile's span of the offset scan) and stitch_segments
+    (every output word written once); on CPU tensors it runs
+    `stitch_segments_plain`."""
     _check(words, bits, seg_len)
     if words.device.type == "cpu":
         return stitch_segments_plain(words, bits, seg_len, pad_ones)
     _build.require_cuda(words, "words", torch.int32)
     _build.require_cuda(bits, "bits", torch.int32)
+    dev = words.device
     c, n = words.shape
-    offs, _, seg_tot, total = segment_offsets(bits, seg_len, c * 32)
-    out_words = stitch_words(n, c, seg_tot.shape[0])
-    out = torch.zeros((out_words,), dtype=torch.int32, device=words.device)
+    n_seg = -(-n // seg_len)
+    out_words = stitch_words(n, c, n_seg)
+    tile = stitch_tile(n)
+    spans = torch.empty((-(-n // tile), 3), dtype=torch.int64, device=dev)
+    out = torch.empty((out_words,), dtype=torch.int32, device=dev)
+    seg_tot = torch.empty((n_seg,), dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
     P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("stitch", "stitch_scan", (P, I, I, I, I, P),
+                  bits.data_ptr(), n, c, seg_len, tile, spans.data_ptr(),
+                  device=dev)
     _build.launch(
-        "stitch", "stitch_segments", (P, P, P, I, I, I, I, P,
-                                      ctypes.c_longlong),
-        words.data_ptr(), bits.data_ptr(), offs.data_ptr(), n, c, seg_len,
-        int(pad_ones), out.data_ptr(), out_words, device=words.device,
+        "stitch", "stitch_segments",
+        (P, P, P, I, I, I, I, I, P, ctypes.c_longlong, P, P),
+        words.data_ptr(), bits.data_ptr(), spans.data_ptr(), n, c, seg_len,
+        tile, int(pad_ones), out.data_ptr(), out_words, seg_tot.data_ptr(),
+        total.data_ptr(), device=dev,
     )
-    return out, seg_tot.to(torch.int32), total
+    return out, seg_tot, total
 
 
 def stitch_segments_plain(words: torch.Tensor, bits: torch.Tensor,

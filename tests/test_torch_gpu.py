@@ -193,6 +193,85 @@ def test_stitch_matches_plain(cuda, seg_len, c, n, pad_ones):
         assert torch.equal(a, b)
 
 
+def _edge_streams(cuda, c, n, seed):
+    """Streams whose bit counts include 0, 1-31, multiples of a byte and
+    of a word, c * 32 and past it (clamped), zero past their bits."""
+    rng = np.random.default_rng(seed)
+    bits = rng.choice(np.concatenate([
+        np.arange(0, 32), [8, 16, 24, 32, 40, 64, c * 32, c * 32 + 9],
+        rng.integers(0, c * 32 + 1, 8)]), n)
+    valid = (np.minimum(bits, 32 * c)[None, :]
+             - 32 * np.arange(c)[:, None]).clip(0, 32)
+    keep = ((1 << valid) - 1) << (32 - valid)
+    words = rng.integers(0, 2**32, (c, n), dtype=np.int64) & keep
+    return (torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(cuda),
+            torch.from_numpy(bits.astype(np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("seg_len", [1, 2, 37, "n"])
+@pytest.mark.parametrize("c,n", [(2, 5003), (6, 1500)])
+@pytest.mark.parametrize("pad_ones", [True, False])
+def test_stitch_edge_cases_match_plain(cuda, seg_len, c, n, pad_ones):
+    """K12 over several tiles: empty and sub-word streams, segment totals
+    that end on a byte and on a word, clamped streams; one K12 call is
+    one launch of each of its two kernels."""
+    seg_len = n if seg_len == "n" else seg_len
+    words, bits = _edge_streams(cuda, c, n, seg_len + c)
+    before = {k: _build.LAUNCHES[k] for k in ("stitch_scan",
+                                              "stitch_segments")}
+    got = stitch.stitch_segments(words, bits, seg_len, pad_ones)
+    assert all(_build.LAUNCHES[k] == v + 1 for k, v in before.items())
+    want = stitch.stitch_segments_plain(words, bits, seg_len, pad_ones)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", [256, 3072, 8192])
+@pytest.mark.parametrize("seg_len", [1, 50])
+def test_stitch_tile_sizes_match_plain(cuda, monkeypatch, tile, seg_len):
+    """K12 at other tile sizes: 256 streams (many tiles), and tiles whose
+    scan needs more than 48 KB of shared memory (the launch opts in)."""
+    monkeypatch.setattr(stitch, "stitch_tile", lambda n: tile)
+    words, bits = _edge_streams(cuda, 3, 20011, tile + seg_len)
+    got = stitch.stitch_segments(words, bits, seg_len)
+    want = stitch.stitch_segments_plain(words, bits, seg_len)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_stream_concat_rows_past_48k_of_shared_memory(cuda):
+    """K11 for images of 7,000 segments: the scan's 56 KB of shared memory
+    takes the launch's opt-in."""
+    p, n_images = 7000, 2
+    segs, seg_bits = _segments(cuda, p * n_images, 1, 7)
+    got = concat.stream_concat_rows(segs, seg_bits, p, p + 3)
+    want = concat.stream_concat_rows_plain(segs, seg_bits, p, p + 3)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("seg_len", [1000, 2000])
+def test_stitch_walks_past_the_halo(cuda, monkeypatch, seg_len):
+    """A tile that ends inside a word, followed by more empty streams
+    than its block scans: the word's last bits come from a stream that
+    only the serial walk over the bit counts reaches."""
+    monkeypatch.setattr(stitch, "stitch_tile", lambda n: 256)
+    n = 1200
+    bits = np.zeros(n, np.int32)
+    bits[:255] = 3  # 765 bits: tile 0's last word starts at bit 736
+    bits[855:] = 5
+    words = np.zeros((1, n), np.uint32)
+    words[0, bits == 3] = 0xA0000000
+    words[0, bits == 5] = 0xD8000000
+    got = stitch.stitch_segments(
+        torch.from_numpy(words.view(np.int32)).to(cuda),
+        torch.from_numpy(bits).to(cuda), seg_len)
+    want = stitch.stitch_segments_plain(
+        torch.from_numpy(words.view(np.int32)), torch.from_numpy(bits),
+        seg_len)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a.cpu(), b)
+
+
 def test_stitch_clamps_overflowed_streams(cuda):
     """Streams past C words (the encode will retry) count C * 32 bits,
     between 3-bit streams (zero past their bits, as K4 stores them)."""
@@ -267,12 +346,12 @@ def test_merge_rows_ws_at_the_top_color_rung(cuda):
 
 
 @pytest.mark.parametrize("segs_per_image,n_images", [(1, 7), (3, 5),
-                                                     (64, 3)])
+                                                     (64, 3), (378, 2)])
 @pytest.mark.parametrize("pad_ones", [True, False])
 def test_stream_concat_rows_matches_plain(cuda, segs_per_image, n_images,
                                           pad_ones):
-    """K11 on K8's segments: one segment per image, several, many; empty
-    and sub-byte segments."""
+    """K11 on K8's segments: one segment per image, several, many (a
+    2-image batch of the K6 route's 378); empty and sub-byte segments."""
     c, ws = 8, 32
     words, bits = _streams(cuda, c, n_images * segs_per_image * ws,
                            segs_per_image + n_images)
@@ -281,11 +360,48 @@ def test_stream_concat_rows_matches_plain(cuda, segs_per_image, n_images,
     seg_bits[::4] = 0
     segs[::4] = 0
     slab = segs_per_image * ws * c
+    before = _build.LAUNCHES["stream_concat_rows"]
     got = concat.stream_concat_rows(segs, seg_bits, segs_per_image, slab,
                                     pad_ones)
+    assert _build.LAUNCHES["stream_concat_rows"] == before + 1
     want = concat.stream_concat_rows_plain(segs, seg_bits, segs_per_image,
                                            slab, pad_ones)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _segments(cuda, nseg, sw, seed):
+    """nseg segments of sw words, zero past each one's bits: empty ones,
+    ones shorter than a word, and full ones."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, sw * 32 + 1, nseg)
+    bits[rng.random(nseg) < 0.3] = 0
+    bits[rng.random(nseg) < 0.3] = rng.integers(1, 32)
+    bits[rng.random(nseg) < 0.1] = sw * 32
+    valid = (bits[:, None] - 32 * np.arange(sw)[None, :]).clip(0, 32)
+    keep = ((1 << valid) - 1) << (32 - valid)
+    words = rng.integers(0, 2**32, (nseg, sw), dtype=np.int64) & keep
+    return (torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(cuda),
+            torch.from_numpy(bits.astype(np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("scan", ["shared", "global"])
+@pytest.mark.parametrize("slab", [61, 1203, 4100])
+@pytest.mark.parametrize("pad_ones", [True, False])
+def test_stream_concat_rows_odd_slabs_and_global_scan(cuda, monkeypatch, scan,
+                                                     slab, pad_ones):
+    """K11 with slabs of a word count that is not a multiple of 4 (no
+    image but the first starts on a 16-byte line), tiles that cut the
+    slab, and the second launch that images past the card's shared memory
+    take (forced here by a smaller limit)."""
+    p, n_images, sw = 40, 5, 3
+    segs, seg_bits = _segments(cuda, p * n_images, sw, slab + p)
+    seg_bits[p:2 * p] = 0  # an image with no bits
+    segs[p:2 * p] = 0
+    if scan == "global":
+        monkeypatch.setattr(concat, "_smem_optin", lambda dev: 1024)
+    got = concat.stream_concat_rows(segs, seg_bits, p, slab, pad_ones)
+    want = concat.stream_concat_rows_plain(segs, seg_bits, p, slab, pad_ones)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 @pytest.mark.parametrize("kw", [

@@ -163,12 +163,12 @@ def _photo(h, w, seed):
 
 
 def test_batch_past_the_row_budget_merges_with_k6(monkeypatch):
-    """4112 x 64 at 4:2:0: 264 kernel rows per image, past jpegtpu's 256,
-    so jpegtpu merges with K6 at cap 8; the port takes K6's twin, K5's
-    not at all, with the single-image bytes."""
-    images = [_photo(4112, 64, 1), _photo(4112, 64, 2)]
+    """4112 x 16 at 4:2:0 (one MCU column): 264 kernel rows per image,
+    past jpegtpu's 256, so jpegtpu merges with K6 at cap 8; the port
+    takes K6's twin, K5's not at all, with the single-image bytes."""
+    images = [_photo(4112, 16, 1), _photo(4112, 16, 2)]
     cfg = EncodeConfig(subsampling="420")
-    assert not batch.color_raw_ok(4112, 64, "420", 8)
+    assert not batch.color_raw_ok(4112, 16, "420", 8)
     calls = _spy(monkeypatch)
     got = batch.encode_color_batch(images, cfg, **CPU)
     assert calls == {"merge_mcu_plain": 0, "merge_streams_plain": 1}

@@ -9,6 +9,12 @@ fixture: after a test, in a process past `RSS_LIMIT_MB`, it drops JAX's
 compiled programs (later calls reload them from the persistent cache that
 tests/conftest.py sets) and returns the freed heap to the system. On a
 machine without JAX (the card's) it does nothing.
+
+The same workers share the machine's cores, so the fixture also runs each
+port test with one torch intra-op thread: with one thread per core in
+every worker, torch's OpenMP threads wait on each other at every
+parallel region, and a plain-version encode that takes 0.5 s alone took
+40 s beside five busy processes (1.9 s with one thread).
 """
 import ctypes
 import gc
@@ -16,6 +22,7 @@ import os
 import sys
 
 import pytest
+import torch
 
 RSS_LIMIT_MB = 1024
 
@@ -45,6 +52,7 @@ def release():
 
 @pytest.fixture(autouse=True)
 def release_jax_memory():
+    torch.set_num_threads(1)
     yield
     if rss_mb() > RSS_LIMIT_MB:
         release()
