@@ -24,8 +24,14 @@ the configs that once failed (first rungs past K8's shared memory,
 dct_dtype float64 / float16, stuff="device"); and the color batch of 16
 images of 3024 x 4032 at 4:2:0, which merges its MCU streams by
 jpegtpu's slot-major route: K2, K3, K4, a gather, K6, K8, K11.
-Right after the build, one torch.profiler session counts the device
-kernels of one K12 and one K11 wrapper call (two and one). For each path
+Every source is built anew; the build line lists each kernel's registers,
+spills and shared memory, and the run fails if a kernel of transform.cu
+or pack.cu (K1-K4, K7) spills. Right after the build, one torch.profiler
+session counts the device kernels of one K12 and one K11 wrapper call
+(two and one), and the kernel_edges phase holds K1-K4 against their plain
+versions, equal to the last level and word, on tests/kernel_edge_cases.py's
+adversarial blocks and ragged grids and on the main paths' images. For
+each path
 it holds every kernel against its plain PyTorch version at the path's
 shapes (K12 also at restart_interval 1, with a ragged last segment, and
 on seeded streams at intervals 1, 2, 37 and n with both pads; K8 and K11
@@ -43,8 +49,12 @@ JAX or of jpegtpu.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -62,6 +72,10 @@ from jpegtpu_torch.entropy.device import (MAX_WORDS_PER_BLOCK,
                                           symbol_histograms, y_dc_differences)
 from jpegtpu_torch.ops import transform
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from kernel_edge_cases import k4_blocks, transform_image  # noqa: E402
+
 H, W = 3024, 4032  # 12.19 MPix, the reference's image size
 LADDER_H, LADDER_W = 512, 512
 SIDE_H, SIDE_W = 1024, 1536  # the 4:2:2 and 4:4:4 checks
@@ -74,6 +88,11 @@ K6_RUNG16_N = 64  # 512 x 512 images of its rung-16 check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPS = 20
+# sources whose kernels must build without spill stores (K1-K4)
+NO_SPILL_SOURCES = ("transform", "pack")
+# transform_kernel's kinds (csrc/transform.cu)
+TRANSFORM_KINDS = ("gray", "jfif_luma", "reference_luma", "chroma_420",
+                   "chroma_422", "chroma_444")
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's ~1.98 GHz boost clock
 
 
@@ -84,6 +103,27 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def ptxas_lines(report: str) -> list:
+    """nvcc -Xptxas=-v's lines that name a kernel or give its registers,
+    shared memory and spills."""
+    return [ln.strip() for ln in report.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
+
+
+def blocks_per_sm() -> dict:
+    """Thread blocks one SM holds of each transform kind (256 threads) and
+    of K4 (128 threads, at any cap): the CUDA runtime's occupancy
+    calculator on the built kernels."""
+    return {
+        "transform_kernel": {
+            kind: _build.query("transform", "transform_blocks_per_sm",
+                               (ctypes.c_int,), i)
+            for i, kind in enumerate(TRANSFORM_KINDS)},
+        "encode_blocks_kernel": _build.query("pack", "encode_blocks_per_sm",
+                                             ()),
+    }
 
 
 def make_image(h: int, w: int) -> np.ndarray:
@@ -310,6 +350,110 @@ def wrapper_launches(say) -> None:
     check(counts == {"stitch_segments": 2, "stream_concat_rows": 1}
           and other == 0,
           f"launches per wrapper call: {counts}, other events {other}")
+
+
+def kernel_edge_phases(dev, say) -> None:
+    """K1-K4 against their plain versions, where every level and word must
+    be equal (max_abs_err 0): K4 on tests/kernel_edge_cases.py's
+    adversarial blocks (nb 1, 31, 33 and 1000, the blocks past the tables
+    among them; Annex-K and the blocks' optimal tables; caps 1, 8, 53); K1,
+    K2 (both luma kinds) and K3 (4:2:0, 4:2:2, 4:4:4) on grids of 0/255,
+    checkerboard, stripe and noise blocks whose block columns do not divide
+    a tile, with rows on 16- and 8-byte boundaries, in float and int32
+    mode; and K1-K4 on the main paths' images: 3024 x 4032, 7680 x 4320,
+    and 64 of the batch's 512 x 512 images (the batch's geometry)."""
+    errs = {}
+
+    def diff(name, got, want):
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        errs[name] = max(int((a.long() - b.long()).abs().max())
+                         if a.numel() else 0 for a, b in pairs)
+
+    def k4(name, lv, dcd, huff, caps=(1, 8, 53)):
+        for cap in caps:
+            diff(f"K4 {name} cap {cap}", pack.encode_blocks(lv, dcd, huff, cap),
+                 pack.encode_blocks_plain(lv, dcd, huff, cap))
+
+    def optimal(lv, dcd):
+        return pipeline.optimal_tables(symbol_histograms(lv, dcd), ("lum",),
+                                       dev)[1][0]
+
+    annex_k = tables.encoder_state(EncodeConfig(), dev).huff
+    for nb in (1, 31, 33, 1000):
+        zz, dcd = k4_blocks(nb, seed=nb, past_table=True)
+        lv = torch.from_numpy(zz.T.copy()).to(dev)
+        d = torch.from_numpy(dcd).to(dev)
+        k4(f"edges nb {nb} annex-k", lv, d, annex_k)
+        k4(f"edges nb {nb} optimal", lv, d, optimal(lv, d))
+
+    def offset(t: torch.Tensor) -> torch.Tensor:
+        """t's copy starting 8 bytes past a 16-byte boundary."""
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        buf[8:].view(t.shape).copy_(t)
+        return buf[8:].view(t.shape)
+
+    def transforms(tag, plane, rgb, subsamplings, state, modes=(False, True)):
+        for im in modes:
+            m = f"{tag} {'int32' if im else 'float'}"
+            if plane is not None:
+                diff(f"K1 {m}", transform.transform(plane, state, im),
+                     transform.transform_plain(plane, state, im))
+            if rgb is None:
+                continue
+            for ref in (False, True):
+                diff(f"K2 {m} {'y_ref' if ref else 'jfif'}",
+                     transform.transform_rgb_y(rgb, state, im, ref),
+                     transform.transform_rgb_y_plain(rgb, state, im, ref))
+            for ss in subsamplings:
+                fy, fx = {"420": (2, 2), "422": (1, 2), "444": (1, 1)}[ss]
+                if rgb.shape[0] % (8 * fy) or rgb.shape[1] % (8 * fx):
+                    continue
+                diff(f"K3 {m} {ss}",
+                     transform.transform_rgb_chroma(rgb, state, im, ss),
+                     transform.transform_rgb_chroma_plain(rgb, state, im, ss))
+
+    st90 = tables.encoder_state(EncodeConfig(quality=90), dev)
+    # ragged: 34, 1, 2, 66 and 130 block columns (17, 1, 33 and 65 4:2:0
+    # ones); rows of 296 bytes alternate 16- and 8-byte boundaries
+    for h, w in ((16, 272), (8, 8), (16, 16), (24, 296), (48, 528),
+                 (80, 1040)):
+        plane = torch.from_numpy(transform_image(h, w, seed=w)).to(dev)
+        rgb = torch.from_numpy(transform_image(h, w, seed=h,
+                                               channels=3)).to(dev)
+        for x, y, tag in ((plane, rgb, f"{h}x{w}"),
+                          (offset(plane), offset(rgb), f"{h}x{w} offset 8")):
+            transforms(tag, x, y, ("420", "422", "444"), st90)
+
+    state = tables.encoder_state(EncodeConfig(), dev)
+    for h, w in ((H, W), (BIG_H, BIG_W)):
+        plane = torch.from_numpy(make_image(h, w)).to(dev)
+        rgb = torch.from_numpy(make_color_image(h, w)).to(dev)
+        transforms(f"{h}x{w}", plane, rgb, ("420",), state)
+        lv = transform.transform(plane, state, False)
+        dcd = dc_differences(lv[0])
+        k4(f"{h}x{w} gray", lv, dcd, state.huff, (8,))
+        k4(f"{h}x{w} gray optimal", lv, dcd, optimal(lv, dcd), (8,))
+        ly = transform.transform_rgb_y(rgb, state, False)
+        lc = transform.transform_rgb_chroma(rgb, state, False, "420")
+        dy, dc = color_pipeline.color_dc_differences(ly, lc, h // 16, w // 16,
+                                                     "420", w // 16)
+        k4(f"{h}x{w} 4:2:0 luma", ly, dy, state.huff, (8,))
+        k4(f"{h}x{w} 4:2:0 chroma", lc, dc, state.huff_chroma, (8,))
+    n = 64
+    for color in (False, True):
+        x = batch_images_on_card(n, BATCH_H, BATCH_W, color, seed=42)
+        stack = x.reshape(n * BATCH_H, BATCH_W, *x.shape[3:])
+        tag = f"batch {n} x {BATCH_H}x{BATCH_W}"
+        transforms(tag, None if color else stack, stack if color else None,
+                   ("420",), state)
+        if not color:
+            lv = transform.transform(stack, state, False)
+            k4(f"{tag} gray", lv, dc_differences(
+                lv[0], (BATCH_H // 8) * (BATCH_W // 8)), state.huff, (8,))
+    bad = {k: v for k, v in errs.items() if v}
+    say("kernel_edges", cases=len(errs), max_abs_err=max(errs.values()),
+        nonzero=bad)
+    check(not bad, f"kernel_edges: kernels differ from plain: {bad}")
 
 
 def time_kernels(specs, launches: dict, results: dict, path: str, shape,
@@ -873,6 +1017,12 @@ def batch_images(n: int, h: int, w: int, color: bool, seed: int) -> np.ndarray:
     """n distinct images of make_image's (or make_color_image's) content,
     each with its own noise and brightness, made on the card from a seed:
     uint8 [n, h, w] or [n, h, w, 3] on the host."""
+    return batch_images_on_card(n, h, w, color, seed).cpu().numpy()
+
+
+def batch_images_on_card(n: int, h: int, w: int, color: bool,
+                         seed: int) -> torch.Tensor:
+    """batch_images, left on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
     xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
@@ -886,7 +1036,7 @@ def batch_images(n: int, h: int, w: int, color: bool, seed: int) -> np.ndarray:
 
     x = (torch.stack([chan(0.9, 1.0), chan(1.0, 1.0), chan(1.1, -1.0)], -1)
          if color else chan(1.0, 1.0))
-    return x.clamp(0, 255).to(torch.uint8).cpu().numpy()
+    return x.clamp(0, 255).to(torch.uint8)
 
 
 def batch_stage_breakdown(images: list, cfg, reps: int = 5) -> dict:
@@ -1709,16 +1859,26 @@ def main() -> int:
                           "at_s": time.perf_counter() - t_start}),
               flush=True)
 
-    # --- 1. build -----------------------------------------------------
+    # --- 1. build every source anew; no spills in the redesigned ones ---
     t0 = time.perf_counter()
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     reports = _build.build_all()
-    say("build", seconds=time.perf_counter() - t0,
-        ptxas={k: [ln.strip() for ln in v.splitlines()
-                   if "registers" in ln or "spill" in ln]
-               for k, v in reports.items()})
+    ptxas = {k: ptxas_lines(v) for k, v in reports.items()}
+    occupancy = blocks_per_sm()
+    say("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
+        blocks_per_sm=occupancy)
+    spills = [f"{src}: {ln}" for src in NO_SPILL_SOURCES for ln in ptxas[src]
+              if re.search(r"\b[1-9]\d* bytes spill stores", ln)]
+    check(not spills, f"spill stores: {spills}")
+    check(min(occupancy["transform_kernel"].values()) > 0
+          and occupancy["encode_blocks_kernel"] > 0,
+          f"occupancy query failed: {occupancy}")
 
     # --- 1b. device launches of one K12 and one K11 wrapper call ---------
     wrapper_launches(say)
+
+    # --- 1c. K1-K4 against their plain versions on the edge cases --------
+    kernel_edge_phases(dev, say)
 
     # --- 2. each kernel against its plain version, main-path shapes ----
     cfg = EncodeConfig()

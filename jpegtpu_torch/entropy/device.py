@@ -24,21 +24,9 @@ from .. import tables
 from ..ops.blocks import sampling_factors
 from .concat import (apply_tail_padding, merge_rows, stream_concat,
                      stream_words)
-from .pack import _amplitude, deposit, encode_blocks, pack_blocks, to_int32
+from .pack import (MAX_WORDS_PER_BLOCK, _amplitude, deposit, encode_blocks,
+                   pack_blocks, to_int32)
 from .treepack import _fuse_subslots
-
-# Worst-case entropy bits for one 8x8 block: DC <= 20 (luminance code +
-# 11 amplitude bits), 63 AC lanes <= 16 + 10 each, <= 3 ZRLs of 11 bits,
-# EOB 4. The terms cannot all co-occur, so this bounds every block. The
-# chrominance tables stay inside it too: DC <= 11 + 11 = 22 bits, ZRL 10,
-# EOB 2, so 22 + 63 * 26 + 3 * 10 + 2 = 1692 <= 1695. So do optimal
-# tables, whose codes reach 16 bits (T.81 C): a block with k nonzero AC
-# coefficients takes at most DC 16 + 11, k codes of 16 + 10, one 16-bit
-# ZRL per 16 of its 63 - k zeros and a 16-bit EOB only when k < 63, so
-# 27 + 26k + (63 - k) + 16 <= 1656 for k <= 62, and 27 + 63 * 26 = 1665
-# for k = 63.
-MAX_BITS_PER_BLOCK = 20 + 63 * 26 + 3 * 11 + 4  # = 1695
-MAX_WORDS_PER_BLOCK = (MAX_BITS_PER_BLOCK + 31) // 32  # = 53
 
 
 def dc_differences(dc: torch.Tensor, seg_len: int = 0) -> torch.Tensor:

@@ -7,11 +7,12 @@ Levels [64, nb] int32 (coefficient-major, raster block order), DC
 differences [nb] and a [192] table (tables.huffman_table: Annex K, or
 the 2-pass optimal codes of up to 16 bits, whose worst block fits 53
 words: csrc/pack.cu) -> per-block MSB-first streams: words [cap, nb] and
-bit counts [nb]. Stream words travel in int32 tensors holding the uint32 bit
-patterns (`.numpy().view(np.uint32)` reads them back); torch's uint32
+bit counts [nb]. Stream words travel in int32 tensors holding the uint32
+bit patterns (`.numpy().view(np.uint32)` reads them back); torch's uint32
 lacks shifts and scatters on the CPU. At most `cap` words are kept per
-block, words past its bits are zero, and the bit count is always the full
-one: bits > cap * 32 flags overflow.
+block (`encode_blocks` takes caps up to MAX_WORDS_PER_BLOCK = 53), words
+past its bits are zero, and the bit count is always the full one: bits >
+cap * 32 flags overflow.
 """
 from __future__ import annotations
 
@@ -23,6 +24,19 @@ import torch
 from .. import _build, tables
 
 _MASK32 = 0xFFFFFFFF
+
+# Worst-case entropy bits for one 8x8 block: DC <= 20 (luminance code +
+# 11 amplitude bits), 63 AC lanes <= 16 + 10 each, <= 3 ZRLs of 11 bits,
+# EOB 4. The terms cannot all co-occur, so this bounds every block. The
+# chrominance tables stay inside it too: DC <= 11 + 11 = 22 bits, ZRL 10,
+# EOB 2, so 22 + 63 * 26 + 3 * 10 + 2 = 1692 <= 1695. So do optimal
+# tables, whose codes reach 16 bits (T.81 C): a block with k nonzero AC
+# coefficients takes at most DC 16 + 11, k codes of 16 + 10, one 16-bit
+# ZRL per 16 of its 63 - k zeros and a 16-bit EOB only when k < 63, so
+# 27 + 26k + (63 - k) + 16 <= 1656 for k <= 62, and 27 + 63 * 26 = 1665
+# for k = 63.
+MAX_BITS_PER_BLOCK = 20 + 63 * 26 + 3 * 11 + 4  # = 1695
+MAX_WORDS_PER_BLOCK = (MAX_BITS_PER_BLOCK + 31) // 32  # = 53
 
 
 def encode_blocks(levels: torch.Tensor, dc_diff: torch.Tensor,
@@ -39,6 +53,9 @@ def encode_blocks(levels: torch.Tensor, dc_diff: torch.Tensor,
             f"bad shapes: levels {tuple(levels.shape)}, dc_diff "
             f"{tuple(dc_diff.shape)}, huff {tuple(huff.shape)}"
         )
+    if not 0 <= cap <= MAX_WORDS_PER_BLOCK:
+        raise ValueError(f"cap {cap}: expected 0 to {MAX_WORDS_PER_BLOCK} "
+                         "words, the most a block of the tables takes")
     if levels.device.type == "cpu":
         return encode_blocks_plain(levels, dc_diff, huff, cap)
     for t, name in ((levels, "levels"), (dc_diff, "dc_diff"), (huff, "huff")):

@@ -47,7 +47,9 @@ def transform(plane: torch.Tensor, state: tables.EncoderState,
     if plane.device.type == "cpu":
         return transform_plain(plane, state, int_mode)
     _build.require_cuda(plane, "plane", torch.uint8)
-    if plane.data_ptr() % 8:  # the kernel loads 8 pixels at a time
+    # rows are read in 8-byte pieces (16-byte ones where a row's address
+    # allows it)
+    if plane.data_ptr() % 8:
         plane = plane.clone()
     _build.require_cuda(state.quant, "state.quant", torch.int32)
     _build.require_cuda(state.basis, "state.basis", torch.float32)
@@ -79,7 +81,8 @@ def _kernel_inputs(rgb: torch.Tensor, quant: torch.Tensor,
     _build.require_cuda(quant, "quant", torch.int32)
     _build.require_cuda(state.basis, "state.basis", torch.float32)
     _build.require_cuda(state.basis_int, "state.basis_int", torch.int32)
-    # the kernels load 8 bytes at a time
+    # the kernels read rows in 8-byte pieces, 16-byte ones where a row's
+    # address allows it
     return rgb.clone() if rgb.data_ptr() % 8 else rgb
 
 
