@@ -25,13 +25,14 @@ dct_dtype float64 / float16, stuff="device"); and the color batch of 16
 images of 3024 x 4032 at 4:2:0, which merges its MCU streams by
 jpegtpu's slot-major route: K2, K3, K4, a gather, K6, K8, K11.
 Every source is built anew; the build line lists each kernel's registers,
-spills and shared memory, and the run fails if a kernel of transform.cu
-or pack.cu (K1-K4, K7) spills. Right after the build, one torch.profiler
-session counts the device kernels of one K12 and one K11 wrapper call
-(two and one), and the kernel_edges phase holds K1-K4 against their plain
-versions, equal to the last level and word, on tests/kernel_edge_cases.py's
-adversarial blocks and ragged grids and on the main paths' images. For
-each path
+spills and shared memory, and the run fails if a kernel of transform.cu,
+pack.cu or concat.cu (K1-K4, K7-K11) spills. Right after the build, one
+torch.profiler session counts the device kernels of one K12, K11, K10
+and K7 wrapper call (two, one, one and one), and the kernel_edges phase
+holds K1-K4, K7 and K10 against their plain versions, equal to the last
+level and word, on tests/kernel_edge_cases.py's adversarial blocks,
+ragged grids, fused elements and segments and on the main paths' images.
+For each path
 it holds every kernel against its plain PyTorch version at the path's
 shapes (K12 also at restart_interval 1, with a ragged last segment, and
 on seeded streams at intervals 1, 2, 37 and n with both pads; K8 and K11
@@ -74,7 +75,8 @@ from jpegtpu_torch.ops import transform
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from kernel_edge_cases import k4_blocks, transform_image  # noqa: E402
+from kernel_edge_cases import (K7_CAPS, K10_CASES, k4_blocks,  # noqa: E402
+                               k7_elements, k10_case, transform_image)
 
 H, W = 3024, 4032  # 12.19 MPix, the reference's image size
 LADDER_H, LADDER_W = 512, 512
@@ -88,8 +90,11 @@ K6_RUNG16_N = 64  # 512 x 512 images of its rung-16 check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPS = 20
-# sources whose kernels must build without spill stores (K1-K4)
-NO_SPILL_SOURCES = ("transform", "pack")
+# sources whose kernels must build without spill stores (K1-K4, K7-K11)
+NO_SPILL_SOURCES = ("transform", "pack", "concat")
+# K10's segment counts at 8K, cap 8: gray (4,320 row segments of 128
+# blocks) and 4:2:0 (1,080 of 128 MCUs)
+K10_8K_SEGMENTS = {"8k_gray": 4320, "8k_420": 1080}
 # transform_kernel's kinds (csrc/transform.cu)
 TRANSFORM_KINDS = ("gray", "jfif_luma", "reference_luma", "chroma_420",
                    "chroma_422", "chroma_444")
@@ -113,9 +118,10 @@ def ptxas_lines(report: str) -> list:
 
 
 def blocks_per_sm() -> dict:
-    """Thread blocks one SM holds of each transform kind (256 threads) and
-    of K4 (128 threads, at any cap): the CUDA runtime's occupancy
-    calculator on the built kernels."""
+    """Thread blocks one SM holds of each transform kind (256 threads), of
+    K4 and K7 (128 threads, at any cap) and of K10 (256 threads, its scan
+    of the 8K frame's segment counts in shared memory): the CUDA runtime's
+    occupancy calculator on the built kernels."""
     return {
         "transform_kernel": {
             kind: _build.query("transform", "transform_blocks_per_sm",
@@ -123,6 +129,11 @@ def blocks_per_sm() -> dict:
             for i, kind in enumerate(TRANSFORM_KINDS)},
         "encode_blocks_kernel": _build.query("pack", "encode_blocks_per_sm",
                                              ()),
+        "pack_blocks_kernel": _build.query("pack", "pack_blocks_per_sm", ()),
+        "stream_concat_chunked_kernel": {
+            path: _build.query("concat", "stream_concat_chunked_per_sm",
+                               (ctypes.c_int, ctypes.c_int), n, 0)
+            for path, n in K10_8K_SEGMENTS.items()},
     }
 
 
@@ -303,21 +314,33 @@ def seeded_streams(c: int, n: int, seed: int, lengths=None):
 
 
 def wrapper_launches(say) -> None:
-    """One call each of K12's and K11's wrappers in one torch.profiler
-    session (the run's only one): the device kernels each launched, and
-    their device microseconds, from key_averages(). K12 runs on 190,512
-    seeded streams of 8 words at interval 504 (the 3024 x 4032 gray
-    restart grid), K11 on 64 images of the gray batch's 64 row segments
-    of 576 words. Fails if the profiler sees device events and they are
-    not one K11 launch and two K12 launches; says so if it sees none."""
+    """One call each of K12's, K11's, K10's and K7's wrappers in one
+    torch.profiler session (the run's only one): the device kernels each
+    launched, and their device microseconds, from key_averages(). K12 runs
+    on 190,512 seeded streams of 8 words at interval 504 (the 3024 x 4032
+    gray restart grid), K11 on 64 images of the gray batch's 64 row
+    segments of 576 words, K10 on 4,320 seeded segments of 1,152 words
+    into the 8K gray stream's 4,148,736 words, K7 on 4,096 blocks of
+    tests/kernel_edge_cases.py's fused elements. Fails if the profiler
+    sees device events and they are not two K12 launches and one each of
+    the others; says so if it sees none."""
     from torch.profiler import ProfilerActivity, profile
     words, bits = seeded_streams(8, (H // 8) * (W // 8), 5)
     sw, sb = seeded_streams(576, 64 * 64, 6, np.arange(0, 4000))
     segs = sw.T.contiguous()
+    cw, cb = seeded_streams(1152, K10_8K_SEGMENTS["8k_gray"], 7,
+                            np.arange(0, 1152 * 8))
+    csegs = cw.T.contiguous()
+    ew, eb = k7_elements(4096, seed=8)
+    ew = torch.from_numpy(ew.view(np.int32)).cuda()
+    eb = torch.from_numpy(eb).cuda()
     calls = {"stitch_segments": lambda: stitch.stitch_segments(words, bits,
                                                                W // 8),
              "stream_concat_rows": lambda: concat.stream_concat_rows(
-                 segs, sb, 64, 64 * 64 * 8)}
+                 segs, sb, 64, 64 * 64 * 8),
+             "stream_concat_chunked": lambda: concat.stream_concat_chunked(
+                 csegs, cb, concat.stream_words(BIG_H * BIG_W // 64, 8)),
+             "pack_blocks": lambda: pack.pack_blocks(ew, eb, 8)}
     for fn in calls.values():  # built and loaded before the session
         fn()
     torch.cuda.synchronize()
@@ -338,7 +361,9 @@ def wrapper_launches(say) -> None:
     owner = {"stitch_segments": ("stitch_scan_kernel",
                                  "stitch_segments_kernel"),
              "stream_concat_rows": ("stream_concat_rows_kernel",
-                                    "rows_scan_kernel")}
+                                    "rows_scan_kernel"),
+             "stream_concat_chunked": ("stream_concat_chunked_kernel",),
+             "pack_blocks": ("pack_blocks_kernel",)}
     mine = {k: w for k in seen for w, tags in owner.items()
             if any(t in k for t in tags)}
     counts = {w: sum(seen[k][0] for k in seen if mine.get(k) == w)
@@ -347,14 +372,21 @@ def wrapper_launches(say) -> None:
     say("device_launches", launches=counts, other_device_events=other,
         kernels={k: {"count": c, "device_us": us}
                  for k, (c, us) in seen.items()})
-    check(counts == {"stitch_segments": 2, "stream_concat_rows": 1}
+    check(counts == {"stitch_segments": 2, "stream_concat_rows": 1,
+                     "stream_concat_chunked": 1, "pack_blocks": 1}
           and other == 0,
           f"launches per wrapper call: {counts}, other events {other}")
 
 
 def kernel_edge_phases(dev, say) -> None:
-    """K1-K4 against their plain versions, where every level and word must
-    be equal (max_abs_err 0): K4 on tests/kernel_edge_cases.py's
+    """K1-K4, K7 and K10 against their plain versions, where every level
+    and word must be equal (max_abs_err 0): K7 on
+    tests/kernel_edge_cases.py's fused elements (96-bit elements at every
+    residue, exact word ends and cap overflow at caps 1, 8 and 53, nb 1,
+    31, 33 and 1000, 64 and 130 elements a block), the overflow flag too;
+    K10 on its segments (empty and sub-word segments, totals on a word
+    boundary, partial last words, one-segment streams) with the scan in
+    shared memory and in global scratch; K4 on its
     adversarial blocks (nb 1, 31, 33 and 1000, the blocks past the tables
     among them; Annex-K and the blocks' optimal tables; caps 1, 8, 53); K1,
     K2 (both luma kinds) and K3 (4:2:0, 4:2:2, 4:4:4) on grids of 0/255,
@@ -377,6 +409,33 @@ def kernel_edge_phases(dev, say) -> None:
     def optimal(lv, dcd):
         return pipeline.optimal_tables(symbol_histograms(lv, dcd), ("lum",),
                                        dev)[1][0]
+
+    for nb, n_elem in ((1, 64), (31, 64), (33, 64), (1000, 64), (300, 130)):
+        ew, eb = k7_elements(nb, seed=nb + n_elem, n_elem=n_elem)
+        ew = torch.from_numpy(ew.view(np.int32)).to(dev)
+        eb = torch.from_numpy(eb).to(dev)
+        for cap in K7_CAPS:
+            got = pack.pack_blocks(ew, eb, cap)
+            want = pack.pack_blocks_plain(ew, eb, cap)
+            diff(f"K7 edges nb {nb} E {n_elem} cap {cap}",
+                 (got[0], got[1], got[2]), (want[0], want[1], want[2]))
+    smem_optin = concat._smem_optin
+    for scan in ("shared", "global"):
+        if scan == "global":  # the second launch, forced by a small limit
+            concat._smem_optin = lambda device: 256
+        try:
+            for i, case in enumerate(K10_CASES):
+                sg, sb, out_words = k10_case(i)
+                sg = torch.from_numpy(sg.view(np.int32)).to(dev)
+                sb = torch.from_numpy(sb).to(dev)
+                got = concat.stream_concat_chunked(sg, sb, out_words)
+                want = concat.stream_concat_chunked_plain(sg, sb, out_words,
+                                                          concat.PLAIN_TILE)
+                diff(f"K10 edges {case} {scan} scan",
+                     (got[0], got[1].reshape(1)),
+                     (want[0], want[1].reshape(1)))
+        finally:
+            concat._smem_optin = smem_optin
 
     annex_k = tables.encoder_state(EncodeConfig(), dev).huff
     for nb in (1, 31, 33, 1000):
@@ -1416,9 +1475,9 @@ def large_frame_phases(dev, say) -> list:
         check(int(bits.max()) <= cap * 32, f"8K {kind}: overflowed cap 8")
         segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
         out_words = concat.stream_words(nbh * nbw, words.shape[0])
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tile = concat.chunk_tile(segs.shape[0], segs.shape[1],
-                                 concat._smem_optin(dev), sms)
+        # jpegtpu's chunks hold this many segments at 8K; the plain
+        # version's stream does not depend on it
+        tile = 17
         k10 = concat.stream_concat_chunked(segs, seg_bits, out_words)
         plain = concat.stream_concat_chunked_plain(segs, seg_bits, out_words,
                                                    tile)
@@ -1430,7 +1489,9 @@ def large_frame_phases(dev, say) -> list:
         say("large_frame_kernels_vs_plain", path=f"8k_{kind}",
             shape=list(img.shape), concat_mode=mode, segments=int(
                 segs.shape[0]), segment_words=int(segs.shape[1]),
-            tile_segments=tile, tiles=-(-int(segs.shape[0]) // tile),
+            stream_words=out_words, k10_blocks=concat.chunked_blocks(
+                out_words, concat._chunked_resident(
+                    dev, int(segs.shape[0]), False)),
             stream_concat_chunked=result, equal_to_k9=True,
             image_seconds=made_s)
 
@@ -1504,15 +1565,20 @@ def large_frame_phases(dev, say) -> list:
         k10_total = int(concat.stream_concat_chunked(segs, seg_bits,
                                                      out_words)[1])
         valid_seg_words = int(((seg_bits.long() + 31) // 32).sum())
-        nbytes = (valid_seg_words * 4 + segs.shape[0] * 12
-                  + (k10_total + 31) // 32 * 4)
+        # the segments' valid words and bit counts in, the stream's valid
+        # words and the total out; the contract also writes every zero of
+        # the stream past the total, the second bound
+        nbytes = (valid_seg_words * 4 + segs.shape[0] * 4
+                  + (k10_total + 31) // 32 * 4 + 8)
+        whole = valid_seg_words * 4 + segs.shape[0] * 4 + out_words * 4 + 8
         spec = ("stream_concat_chunked", "jpegtpu_torch/csrc/concat.cu",
                 "jpegtpu/entropy/pallas_concat.py:762",
                 lambda: concat.stream_concat_chunked(segs, seg_bits,
                                                      out_words),
                 lambda: concat.stream_concat_chunked_plain(
                     segs, seg_bits, out_words, tile),
-                nbytes, valid_seg_words * 2)
+                nbytes, valid_seg_words * 2,
+                {"bound_ms_whole_buffer": whole / HBM_BYTES_PER_S * 1e3})
         entries += time_kernels([spec], launches,
                                 {"stream_concat_chunked": result},
                                 f"8k_{kind}", list(img.shape), say)
@@ -1526,7 +1592,8 @@ def large_frame_phases(dev, say) -> list:
             times.setdefault(name, []).append(time_ms(fn))
         say("k9_vs_k10", path=f"8k_{kind}", shape=list(img.shape),
             k9_ms=times["K9"], k10_ms=times["K10"],
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, tile_segments=tile)
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_ms_whole_buffer=whole / HBM_BYTES_PER_S * 1e3)
         del x, lv, words, bits, segs, seg_bits
         torch.cuda.empty_cache()
 
@@ -1871,13 +1938,15 @@ def main() -> int:
               if re.search(r"\b[1-9]\d* bytes spill stores", ln)]
     check(not spills, f"spill stores: {spills}")
     check(min(occupancy["transform_kernel"].values()) > 0
-          and occupancy["encode_blocks_kernel"] > 0,
+          and occupancy["encode_blocks_kernel"] > 0
+          and occupancy["pack_blocks_kernel"] > 0
+          and min(occupancy["stream_concat_chunked_kernel"].values()) > 0,
           f"occupancy query failed: {occupancy}")
 
-    # --- 1b. device launches of one K12 and one K11 wrapper call ---------
+    # --- 1b. device launches of one K12, K11, K10 and K7 wrapper call ----
     wrapper_launches(say)
 
-    # --- 1c. K1-K4 against their plain versions on the edge cases --------
+    # --- 1c. K1-K4, K7, K10 against their plain versions, edge cases ----
     kernel_edge_phases(dev, say)
 
     # --- 2. each kernel against its plain version, main-path shapes ----

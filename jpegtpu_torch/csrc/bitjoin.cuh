@@ -1,7 +1,9 @@
 // Bit-granular helpers of the stream joins that build each output word
-// from the bits covering it: K11 (concat.cu, stream_concat_rows) and K12
-// (stitch.cu, stitch_segments). Words are MSB first. Shift counts stay in
-// [0, 31]: a shift by 32 is undefined in CUDA.
+// from the bits covering it: K10 and K11 (concat.cu,
+// stream_concat_chunked and stream_concat_rows) and K12 (stitch.cu,
+// stitch_segments), and the block scan of segment bit counts that K10 and
+// K11 run. Words are MSB first. Shift counts stay in [0, 31]: a shift by
+// 32 is undefined in CUDA.
 #pragma once
 
 #include <cstdint>
@@ -85,6 +87,109 @@ __device__ __forceinline__ long long first_group(long long lo, int phase) {
 
 __device__ __forceinline__ int line_phase(const unsigned* out) {
   return (int)((reinterpret_cast<uintptr_t>(out) >> 2) & 3);
+}
+
+// The sum of x over the block's threads before this one (blockDim.x a
+// multiple of 32); *total, if given, gets the sum over all of them.
+// warp_tot holds 32 values of shared memory.
+__device__ inline long long block_exclusive_sum(long long x,
+                                               long long* warp_tot,
+                                               long long* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  long long inc = x;
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) warp_tot[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    long long w = lane < nwarps ? warp_tot[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < nwarps) warp_tot[lane] = w;
+  }
+  __syncthreads();
+  const long long before = warp ? warp_tot[warp - 1] : 0;
+  if (total) *total = warp_tot[nwarps - 1];
+  __syncthreads();  // warp_tot is reused by the next call
+  return before + inc - x;
+}
+
+// The block's inclusive scan of the P values in inc[0, P), in place: each
+// thread sums a run of ceil(P / blockDim.x) values, one block scan of the
+// run sums, then each thread writes its run's running sums.
+__device__ inline void scan_in_place(long long* inc, int P,
+                                     long long* warp_tot) {
+  __syncthreads();
+  const int run = (P + blockDim.x - 1) / blockDim.x;
+  const int r0 = min(P, (int)threadIdx.x * run), r1 = min(P, r0 + run);
+  long long sum = 0;
+  for (int i = r0; i < r1; ++i) sum += inc[i];
+  long long acc = block_exclusive_sum(sum, warp_tot, nullptr);
+  for (int i = r0; i < r1; ++i) {
+    acc += inc[i];
+    inc[i] = acc;
+  }
+  __syncthreads();
+}
+
+// Inclusive scan of one image's P segment bit counts into inc[0, P) (K11).
+__device__ inline void scan_counts(const int* __restrict__ bits, int P,
+                                   long long* inc, long long* warp_tot) {
+  for (int i = threadIdx.x; i < P; i += blockDim.x) inc[i] = bits[i];
+  scan_in_place(inc, P, warp_tot);
+}
+
+// Four consecutive words of a stream whose 128 bits all lie in one
+// segment (seg_words words at src, MSB first), the first starting at the
+// segment's bit q: five loads and four funnel shifts.
+__device__ __forceinline__ void segment_words4(
+    unsigned (&v)[4], const unsigned* __restrict__ src, int seg_words,
+    long long q) {
+  const long long k = q >> 5;
+  const int r = (int)(q & 31);
+  unsigned x[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) x[i] = k + i < seg_words ? src[k + i] : 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = r ? (x[i] << r) | (x[i + 1] >> (32 - r)) : x[i];
+  }
+}
+
+// Word d of an image's stream: the bits of its segments (segment s holds
+// bits [inc[s - 1], inc[s]) of the image; its words at src + s * seg_words)
+// that fall in [32 d, 32 d + 32), then the pad up to `padded`, then zeros.
+// s is the first segment whose end passes bit 32 d, or P; it is left at
+// the segment where the word ended, for word d + 1.
+__device__ __forceinline__ unsigned rows_word(
+    long long d, int& s, const long long* inc, int P,
+    const unsigned* __restrict__ src, int seg_words, long long padded,
+    int pad_ones) {
+  long long pos = 32 * d;
+  const long long wend = pos + 32;
+  unsigned v = 0u;
+  while (pos < wend) {
+    while (s < P && inc[s] <= pos) ++s;  // skips empty segments
+    if (s == P) {  // past the image's bits: its pad, then zeros
+      if (pad_ones && pos < padded) {
+        v |= jt::top_mask(min(padded, wend) - pos) >> (pos - 32 * d);
+      }
+      break;
+    }
+    const long long off = s ? inc[s - 1] : 0;  // <= pos
+    const long long stop = min(inc[s], wend);
+    const unsigned* seg = src + (size_t)s * seg_words;
+    v |= jt::take_bits([seg](long long k) { return seg[k]; },
+                       (long long)seg_words, pos - off, stop - pos)
+         >> (pos - 32 * d);
+    pos = stop;
+  }
+  return v;
 }
 
 }  // namespace jt

@@ -39,19 +39,26 @@
 //   output when it shares the word with a neighbouring segment (the first
 //   and last word). The scan's wrapper runs B where jpegtpu's stream
 //   buffer is VMEM-resident (its concat_mode), D everywhere else.
-// - D: one thread block per tile of T consecutive segments. The TPU's
-//   chunks are worst-case-sized VMEM blocks that an XLA epilogue ORs
-//   together; here a tile's worst case (T full segments plus one word of
-//   bit residue) must fit the block's dynamic shared memory (opt-in past
-//   48 KB; the wrapper sizes T, and refuses a segment that alone does not
-//   fit). The block zeroes the words its tile actually covers, from the
-//   word floor of its first segment's offset to its last segment's end,
-//   places each segment there with B's funnel shift (plain stores inside a
-//   segment, shared atomicOr on the two words it shares with neighbours),
-//   and writes the window out coalesced: plain stores inside, global
-//   atomicOr on its first and last word, which neighbouring tiles share.
-//   So global memory sees each stream word once, and one launch does what
-//   the TPU does in a kernel and an epilogue.
+// - D: one launch writes every stream word once with plain stores, and
+//   the total: no zero-fill, no prefix sums or atomics around it. The
+//   TPU's chunks are worst-case-sized VMEM blocks that an XLA epilogue
+//   ORs together; they have no counterpart here. A grid of as many
+//   thread blocks of 1024 as the SMs hold (one each; its shared memory is
+//   the scan: 8 bytes a segment, 35 KB for the 8K frame's 4,320) each
+//   scans every segment's bit count into shared memory (16-byte loads;
+//   int64 inclusive ends, the total the last), takes an equal share of
+//   the words that hold bits and builds each 4-word group of it from the
+//   segment that covers its first bit (binary search; five loads and
+//   funnel shifts when one segment holds all 128 bits, else C's
+//   word-by-word walk across segment ends, empty segments and segments
+//   shorter than a word), and stores an equal share of the zeros past the
+//   total with 16-byte stores. At 8K the zeros are 83% / 89% of the
+//   16.6 MB (gray) / 24.9 MB (4:2:0) stream, which the design before
+//   zeroed in a launch of its own and then ORed the bits into. A stream of more
+//   segments than shared memory holds takes C's second launch, which
+//   writes the scan to global scratch first.
+//   tools/k10_warp_per_segment.cu places a segment a warp instead
+//   (PERF.md compares the two).
 // - C: every slab word is written once, by a plain coalesced store (16
 //   bytes where the slab is aligned): no zero-fill, no global atomics, no
 //   prefix sums outside the launch. The slabs are 134-201 MB at the
@@ -91,6 +98,7 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kMinThreads = 32;
 constexpr int kStreamThreads = 256;
+constexpr int kChunkThreads = 1024;  // K10: one thread block an SM
 
 __host__ __device__ inline int merge_threads(int ws) {
   return ws < kMinThreads ? kMinThreads : ws;
@@ -185,133 +193,79 @@ stream_concat_kernel(const unsigned* __restrict__ segs,
                 seg_bits[s], out, out_words);
 }
 
-__global__ void __launch_bounds__(kStreamThreads)
+// Word boundaries of share i of n words cut into `parts` shares of whole
+// 4-word groups.
+__device__ __forceinline__ long long share_start(long long n, long long i,
+                                                 long long parts) {
+  const long long each = ((n + parts - 1) / parts + 3) & ~3LL;
+  return min(n, i * each);
+}
+
+// Loads the nseg bit counts into inc[0, nseg) as int64, in 16-byte loads
+// where the counts are aligned.
+__device__ inline void load_counts(const int* __restrict__ bits, int nseg,
+                                   long long* inc) {
+  const int nvec = (reinterpret_cast<uintptr_t>(bits) & 15) ? 0 : nseg >> 2;
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+    const int4 c = reinterpret_cast<const int4*>(bits)[i];
+    inc[4 * i] = c.x;
+    inc[4 * i + 1] = c.y;
+    inc[4 * i + 2] = c.z;
+    inc[4 * i + 3] = c.w;
+  }
+  for (int i = 4 * nvec + threadIdx.x; i < nseg; i += blockDim.x) {
+    inc[i] = bits[i];
+  }
+}
+
+// K10. Every block scans all nseg bit counts (in shared memory, or reads
+// the scan from inc_global) and writes its share of the stream's words:
+// first of those that hold bits, then of the zeros past the total.
+template <bool kScanInSmem>
+__global__ void __launch_bounds__(kChunkThreads)
 stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
                              const int* __restrict__ seg_bits,
-                             const long long* __restrict__ offs, int nseg,
-                             int seg_words, int tile, int window,
-                             unsigned* __restrict__ out,
-                             long long out_words) {
-  extern __shared__ unsigned win[];  // window words, from word `base`
-  const int s0 = blockIdx.x * tile;
-  const int s1 = min(s0 + tile, nseg);
-  const long long start = offs[s0];
-  const long long end = offs[s1 - 1] + seg_bits[s1 - 1];
-  if (end <= start) return;  // every segment of the tile is empty
-  const long long base = start >> 5;
-  // words the tile covers; <= window for segments of <= seg_words * 32
-  // bits, and never more are touched
-  const int n = (int)min(((end - 1) >> 5) - base + 1, (long long)window);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) win[i] = 0u;
-  __syncthreads();
-  for (int s = s0; s < s1; ++s) {
-    const long long sb = seg_bits[s];
-    if (sb <= 0) continue;
-    const long long off = offs[s] - base * 32;  // bit offset in the window
-    const int first = (int)(off >> 5);
-    const int cnt = (int)(((off + sb - 1) >> 5) - first + 1);
-    const int r = (int)(off & 31);
-    const unsigned* src = segs + (size_t)s * seg_words;
-    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-      const int d = first + i;
-      if (d >= n) break;
-      const unsigned v = shifted_word(src, seg_words, i, r);
-      if (i > 0 && i < cnt - 1) {
-        win[d] = v;  // all 32 bits are this segment's
-      } else {
-        atomicOr(&win[d], v);  // shared with the neighbouring segment
-      }
-    }
+                             const long long* __restrict__ inc_global,
+                             int nseg, int seg_words,
+                             unsigned* __restrict__ out, long long out_words,
+                             long long* __restrict__ total_out) {
+  extern __shared__ long long inc_smem[];
+  __shared__ long long warp_tot[32];
+  const long long* inc = inc_global;
+  if (kScanInSmem) {
+    load_counts(seg_bits, nseg, inc_smem);
+    jt::scan_in_place(inc_smem, nseg, warp_tot);
+    inc = inc_smem;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const long long d = base + i;
-    if (d >= out_words) break;
-    if (i > 0 && i < n - 1) {
-      out[d] = win[i];
+  const long long total = inc[nseg - 1];
+  if (blockIdx.x == 0 && threadIdx.x == 0) *total_out = total;
+  const long long valid = min((total + 31) >> 5, out_words);
+  const long long lo = share_start(valid, blockIdx.x, gridDim.x);
+  const long long hi = share_start(valid, blockIdx.x + 1, gridDim.x);
+  for (long long g = jt::first_group(lo, jt::line_phase(out)) +
+                     4LL * threadIdx.x;
+       g < hi; g += 4LL * blockDim.x) {
+    const long long d0 = max(g, lo), d1 = min(g + 4, hi);
+    unsigned v[4] = {0u, 0u, 0u, 0u};
+    int s = jt::upper_bound(inc, nseg, 32 * d0);
+    const long long off = s ? inc[s - 1] : 0;
+    if (d1 - d0 == 4 && 32 * d0 + 128 <= inc[s]) {
+      jt::segment_words4(v, segs + (size_t)s * seg_words, seg_words,
+                         32 * d0 - off);
     } else {
-      atomicOr(&out[d], win[i]);  // shared with the neighbouring tile
-    }
-  }
-}
-
-// The sum of x over the block's threads before this one (blockDim.x a
-// multiple of 32); *total, if given, gets the sum over all of them.
-// warp_tot holds 32 values of shared memory.
-__device__ long long block_exclusive_sum(long long x, long long* warp_tot,
-                                         long long* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  long long inc = x;
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == 31) warp_tot[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    long long w = lane < nwarps ? warp_tot[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nwarps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  const long long before = warp ? warp_tot[warp - 1] : 0;
-  if (total) *total = warp_tot[nwarps - 1];
-  __syncthreads();  // warp_tot is reused by the next call
-  return before + inc - x;
-}
-
-// K11. Inclusive scan of one image's P bit counts into inc[0, P), by the
-// block: each thread sums a run of ceil(P / blockDim.x) counts, one block
-// scan of the run sums, then each thread writes its run's running sums.
-__device__ void scan_counts(const int* __restrict__ bits, int P,
-                            long long* inc, long long* warp_tot) {
-  for (int i = threadIdx.x; i < P; i += blockDim.x) inc[i] = bits[i];
-  __syncthreads();
-  const int run = (P + blockDim.x - 1) / blockDim.x;
-  const int r0 = min(P, (int)threadIdx.x * run), r1 = min(P, r0 + run);
-  long long sum = 0;
-  for (int i = r0; i < r1; ++i) sum += inc[i];
-  long long acc = block_exclusive_sum(sum, warp_tot, nullptr);
-  for (int i = r0; i < r1; ++i) {
-    acc += inc[i];
-    inc[i] = acc;
-  }
-  __syncthreads();
-}
-
-// Word d of an image's stream: the bits of its segments (segment s holds
-// bits [inc[s - 1], inc[s]) of the image; its words at src + s * seg_words)
-// that fall in [32 d, 32 d + 32), then the pad up to `padded`, then zeros.
-// s is the first segment whose end passes bit 32 d, or P; it is left at
-// the segment where the word ended, for word d + 1.
-__device__ __forceinline__ unsigned rows_word(
-    long long d, int& s, const long long* inc, int P,
-    const unsigned* __restrict__ src, int seg_words, long long padded,
-    int pad_ones) {
-  long long pos = 32 * d;
-  const long long wend = pos + 32;
-  unsigned v = 0u;
-  while (pos < wend) {
-    while (s < P && inc[s] <= pos) ++s;  // skips empty segments
-    if (s == P) {  // past the image's bits: its pad, then zeros
-      if (pad_ones && pos < padded) {
-        v |= jt::top_mask(min(padded, wend) - pos) >> (pos - 32 * d);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        if (d0 + w < d1) {
+          v[w] = jt::rows_word(d0 + w, s, inc, nseg, segs, seg_words,
+                               total, 0);
+        }
       }
-      break;
     }
-    const long long off = s ? inc[s - 1] : 0;  // <= pos
-    const long long stop = min(inc[s], wend);
-    const unsigned* seg = src + (size_t)s * seg_words;
-    v |= jt::take_bits([seg](long long k) { return seg[k]; },
-                       (long long)seg_words, pos - off, stop - pos)
-         >> (pos - 32 * d);
-    pos = stop;
+    jt::store_words(out, d0, (int)(d1 - d0), v);
   }
-  return v;
+  const long long nz = out_words - valid;
+  jt::zero_words(out, valid + share_start(nz, blockIdx.x, gridDim.x),
+                 valid + share_start(nz, blockIdx.x + 1, gridDim.x));
 }
 
 // One block per (image, tile of tile_words slab words), image-major. The
@@ -354,7 +308,7 @@ stream_concat_rows_kernel(const unsigned* __restrict__ segs,
   }
   const long long* inc;
   if (kScanInSmem) {
-    scan_counts(seg_bits + s0, P, inc_smem, warp_tot);
+    jt::scan_counts(seg_bits + s0, P, inc_smem, warp_tot);
     inc = inc_smem;
   } else {
     inc = inc_global + s0;
@@ -370,7 +324,7 @@ stream_concat_rows_kernel(const unsigned* __restrict__ segs,
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         if (d0 + w < d1) {
-          v[w] = rows_word(d0 + w, s, inc, P, src, seg_words, padded,
+          v[w] = jt::rows_word(d0 + w, s, inc, P, src, seg_words, padded,
                            pad_ones);
         }
       }
@@ -392,7 +346,7 @@ rows_scan_kernel(const int* __restrict__ seg_bits, int segs_per_image,
     const int i = c + threadIdx.x;
     const long long x = i < segs_per_image ? seg_bits[s0 + i] : 0;
     long long chunk = 0;
-    const long long ex = block_exclusive_sum(x, warp_tot, &chunk);
+    const long long ex = jt::block_exclusive_sum(x, warp_tot, &chunk);
     if (i < segs_per_image) inc_out[s0 + i] = carry + ex + x;
     carry += chunk;
   }
@@ -458,27 +412,57 @@ extern "C" int jt_smem_optin() {
   return optin;
 }
 
-// Tiles of `tile` segments; the wrapper checked that tile * seg_words + 1
-// words fit the device's opt-in shared memory.
+using ChunkedKernel = void (*)(const unsigned*, const int*,
+                               const long long*, int, int, unsigned*,
+                               long long, long long*);
+
+// K10 with its scan in shared memory (nseg int64) or in global scratch.
+static ChunkedKernel chunked_kernel(bool scratch) {
+  return scratch ? stream_concat_chunked_kernel<false>
+                 : stream_concat_chunked_kernel<true>;
+}
+
+// Thread blocks of K10 one SM holds for nseg segments (scratch: the scan
+// in global memory), or -1 on an error; launches nothing.
+extern "C" int jt_stream_concat_chunked_per_sm(int nseg, int scratch) {
+  const ChunkedKernel kernel = chunked_kernel(scratch != 0);
+  const size_t smem = scratch ? 0 : (size_t)nseg * sizeof(long long);
+  int n = 0;
+  if ((smem > 48 * 1024 &&
+       cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)smem) != cudaSuccess) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, kChunkThreads, smem) != cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
+// One launch of `blocks` thread blocks when the scan fits shared memory;
+// where it does not (the wrapper then passes inc_scratch, [nseg] int64),
+// rows_scan_kernel writes it there first.
 extern "C" int jt_stream_concat_chunked(const unsigned* segs,
                                         const int* seg_bits,
-                                        const long long* offs, int nseg,
-                                        int seg_words, int tile,
+                                        long long* inc_scratch, int nseg,
+                                        int seg_words, int blocks,
                                         unsigned* out, long long out_words,
+                                        long long* total,
                                         cudaStream_t stream) {
-  if (nseg > 0 && tile > 0) {
-    const int window = tile * seg_words + 1;
-    const size_t smem = (size_t)window * sizeof(unsigned);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          stream_concat_chunked_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    stream_concat_chunked_kernel<<<(nseg + tile - 1) / tile, kStreamThreads,
-                                   smem, stream>>>(
-        segs, seg_bits, offs, nseg, seg_words, tile, window, out, out_words);
+  if (nseg <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
+  const ChunkedKernel kernel = chunked_kernel(inc_scratch != nullptr);
+  const size_t smem = inc_scratch ? 0 : (size_t)nseg * sizeof(long long);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  if (inc_scratch) {
+    rows_scan_kernel<<<1, kStreamThreads, 0, stream>>>(seg_bits, nseg,
+                                                       inc_scratch);
+  }
+  kernel<<<blocks, kChunkThreads, smem, stream>>>(
+      segs, seg_bits, inc_scratch, nseg, seg_words, out, out_words, total);
   return (int)cudaGetLastError();
 }
 

@@ -62,21 +62,38 @@
 // path (entropy/device.py encode_scan_device with fused=False): symbolize
 // into 5 sub-slots per element, fuse them into elements of 3 words
 // (<= 96 bits), then pack each block's E = 64 elements. It is K4's
-// accumulator loop with the Huffman lookup already done: each thread walks
-// its block's elements in order, funnel-shifts each into a 4-word (128-bit)
-// accumulator at the residue (< 32 bits) left by the last, and retires up
-// to 3 full words per element into word j * nb + b ([cap, nb], so a warp's
-// stores of word j are one coalesced line). Words past cap are counted but
-// never stored, words past the block's bits are stored as zero, and the
-// bit count is the full one, so bits > cap * 32 flags overflow as on the
-// TPU. The TPU kernel keeps its frame in vregs and selects the word slot
-// by compare (no dynamic register index); here the store goes straight to
-// its slot.
+// accumulator loop with the Huffman lookup already done: each block's
+// elements in order, each funnel-shifted into a 4-word (128-bit)
+// accumulator at the residue (< 32 bits) left by the last, up to 3 full
+// words retiring per element. Words past cap are counted but never
+// stored, words past the block's bits are stored as zero, and the bit
+// count is the full one, so bits > cap * 32 flags overflow as on the TPU;
+// the launch also writes that flag itself. The TPU kernel keeps its frame
+// in vregs and selects the word slot by compare (no dynamic register
+// index).
 //
-// Bound: bytes. 4 x 4 bytes of elements in per element slot, cap + 1
-// words out per block; no lookup, ~10 integer operations per element.
-// Reads are [3, E, nb] with nb minor, so a warp's loads of one element
-// word are one 128-byte line.
+// Bound: bytes. The [E, nb] bit counts (4 bytes an element slot, 49 MB
+// for a 12 MPix gray image) dominate; a non-empty element adds the words
+// that hold its bits, and each block writes cap + 1 words; ~10 integer
+// operations per element. A thread that walks its block's elements
+// straight from memory, one at a time, waits on each count, then on each
+// word, in turn: latency, not bytes, bounded that walk. Here a thread per
+// block still walks its elements from registers, but in groups of
+// kGroup: the counts of group g + 1 and the first words of group g's
+// non-empty elements are loaded together, so one round trip serves
+// kGroup elements and a warp has up to 12 lines in flight (a warp's loads
+// of one element are one 128-byte line, nb being minor). Held to 40
+// registers, 12 thread blocks of 128 fit an SM, so a 12 MPix image's
+// 190,512 blocks run in one wave (the compiler's own choice of 44
+// registers, 10 blocks, ran slower). An element's later words (past 32 bits: rare at Q50,
+// about one a block at Q100) are loaded where they are used. Stores go
+// straight to [cap, nb]; the zeros
+// past each block's words are stored row by row for the whole warp, one
+// line a row. Each thread block ORs its blocks' overflow into a word that
+// the last thread block to finish turns into the flag and resets, so the
+// wrapper runs no compare and no reduction after the launch.
+// tools/k7_staged.cu stages the counts and words in shared memory, as K4
+// stages levels; PERF.md gives its times beside this kernel's.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,7 +105,6 @@ namespace {
 // Packed table layout (jpegtpu_torch/tables.py): entry = code << 6 | len.
 constexpr int kHuffAc = 0, kHuffDc = 176, kHuffZrl = 188, kHuffEob = 190;
 constexpr int kHuffSize = 192;
-constexpr int kThreads = 128;  // K7
 
 constexpr int kTileBlocks = 32;  // K4: a warp, a thread per 8x8 block
 constexpr int kEncWarps = 4;     // warps (tiles) a thread block
@@ -98,6 +114,10 @@ constexpr int kMaxWords = 53;    // MAX_WORDS_PER_BLOCK: the largest cap
 // static arrays the kernel took 79 registers, not 48, and ran slower)
 constexpr size_t kEncodeSmem =
     (kHuffSize + kEncWarps * kTileBlocks * kLevPitch) * sizeof(int);
+
+constexpr int kPackThreads = 128;    // K7
+constexpr int kPackBlocksPerSm = 12;  // 40 registers: one wave at 12 MPix
+constexpr int kGroup = 6;            // K7's elements a round trip
 
 // Bits go MSB-first into a 64-bit accumulator that retires 32-bit words
 // into row[0, cap); past them puts only count their bits.
@@ -207,65 +227,114 @@ encode_blocks_kernel(const int* __restrict__ levels,
   bits[b] = w.widx * 32 + w.nacc + w.over;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Appends one element (w0..w2 MSB-aligned, len <= 96 bits) to the
+// accumulator a[0..3] holding cnt < 32 pending bits.
+__device__ __forceinline__ void append_element(unsigned (&a)[4], int cnt,
+                                               unsigned w0, unsigned w1,
+                                               unsigned w2) {
+  if (cnt) {
+    const int t = 32 - cnt;
+    a[0] |= w0 >> cnt;
+    a[1] |= (w1 >> cnt) | (w0 << t);
+    a[2] |= (w2 >> cnt) | (w1 << t);
+    a[3] |= w2 << t;
+  } else {
+    a[0] |= w0;
+    a[1] |= w1;
+    a[2] |= w2;
+  }
+}
+
+__global__ void __launch_bounds__(kPackThreads, kPackBlocksPerSm)
 pack_blocks_kernel(const unsigned* __restrict__ elems,
                    const int* __restrict__ elem_bits, int n_elem, int nb,
                    int cap, unsigned* __restrict__ words,
-                   int* __restrict__ bits) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= nb) return;
+                   int* __restrict__ bits, unsigned char* __restrict__ flag,
+                   unsigned* __restrict__ sync) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = b < nb;
   const size_t plane = (size_t)n_elem * nb;  // one element word's plane
-  unsigned a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;  // MSB-aligned pending bits
+  const int* cp = elem_bits + (live ? b : 0);
+  const unsigned* ep = elems + (live ? b : 0);
+  unsigned a[4] = {0u, 0u, 0u, 0u};  // MSB-aligned pending bits
   int cnt = 0;   // pending bit count, < 32 between elements
   int widx = 0;  // words retired (counted past cap too)
-  for (int e = 0; e < n_elem; ++e) {
-    const size_t i = (size_t)e * nb + b;
-    const int len = elem_bits[i];
-    if (len <= 0) continue;
-    // an element's words are zero past its bits: read only those it uses
-    const unsigned w0 = elems[i];
-    const unsigned w1 = len > 32 ? elems[plane + i] : 0u;
-    const unsigned w2 = len > 64 ? elems[2 * plane + i] : 0u;
-    if (cnt) {
-      const int t = 32 - cnt;
-      a0 |= w0 >> cnt;
-      a1 |= (w1 >> cnt) | (w0 << t);
-      a2 |= (w2 >> cnt) | (w1 << t);
-      a3 |= w2 << t;
-    } else {
-      a0 |= w0;
-      a1 |= w1;
-      a2 |= w2;
+  int next[kGroup];  // the counts of the next group
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    next[j] = live && j < n_elem ? cp[(size_t)j * nb] : 0;
+  }
+  for (int e0 = 0; e0 < n_elem; e0 += kGroup) {
+    int len[kGroup];
+    unsigned w0[kGroup];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      len[j] = next[j];
+      const size_t i = (size_t)(e0 + j) * nb;
+      w0[j] = len[j] > 0 ? ep[i] : 0u;
     }
-    cnt += len;
-    while (cnt >= 32) {  // at most 3 words: cnt < 32 + 96
-      if (widx < cap) words[(size_t)widx * nb + b] = a0;
-      ++widx;
-      a0 = a1;
-      a1 = a2;
-      a2 = a3;
-      a3 = 0u;
-      cnt -= 32;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int e = e0 + kGroup + j;
+      next[j] = live && e < n_elem ? cp[(size_t)e * nb] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (len[j] <= 0) continue;
+      const unsigned w1 =
+          len[j] > 32 ? ep[plane + (size_t)(e0 + j) * nb] : 0u;
+      const unsigned w2 =
+          len[j] > 64 ? ep[2 * plane + (size_t)(e0 + j) * nb] : 0u;
+      append_element(a, cnt, w0[j], w1, w2);
+      cnt += len[j];
+      while (cnt >= 32) {  // at most 3 words: cnt < 32 + 96
+        if (widx < cap) words[(size_t)widx * nb + b] = a[0];
+        ++widx;
+        a[0] = a[1];
+        a[1] = a[2];
+        a[2] = a[3];
+        a[3] = 0u;
+        cnt -= 32;
+      }
     }
   }
-  int next = widx;
-  if (cnt > 0) {  // flush the partial word (zeros below the residue)
-    if (next < cap) words[(size_t)next * nb + b] = a0;
-    ++next;
+  int produced = widx;
+  if (cnt > 0) {  // the partial word (zeros below the residue)
+    if (widx < cap) words[(size_t)widx * nb + b] = a[0];
+    ++produced;
   }
-  for (int j = next; j < cap; ++j) words[(size_t)j * nb + b] = 0u;
-  bits[b] = widx * 32 + cnt;
+  // zeros past each block's words, row by row: one line a row
+  for (int r = 0; r < cap; ++r) {
+    if (live && r >= produced) words[(size_t)r * nb + b] = 0u;
+  }
+  if (live) bits[b] = widx * 32 + cnt;
+  // the overflow flag: sync[0] ORs the thread blocks' overflow, sync[1]
+  // counts finished thread blocks; the last one writes the flag and
+  // resets both for the next launch on this stream
+  const bool over = live && widx * 32 + cnt > cap * 32;
+  if (__syncthreads_or(over) && threadIdx.x == 0) atomicOr(&sync[0], 1u);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(&sync[1], 1u) == gridDim.x - 1) {
+      __threadfence();
+      *flag = atomicExch(&sync[0], 0u) != 0u;
+      atomicExch(&sync[1], 0u);
+    }
+  }
 }
 
 }  // namespace
 
+// sync: two words, zero before the first launch on a stream; each launch
+// leaves them zero. flag: one byte, the overflow.
 extern "C" int jt_pack_blocks(const unsigned* elems, const int* elem_bits,
                               int n_elem, int nb, int cap, unsigned* words,
-                              int* bits, cudaStream_t stream) {
+                              int* bits, unsigned char* flag, unsigned* sync,
+                              cudaStream_t stream) {
   if (nb > 0) {
-    pack_blocks_kernel<<<(nb + kThreads - 1) / kThreads, kThreads, 0,
-                         stream>>>(elems, elem_bits, n_elem, nb, cap, words,
-                                   bits);
+    pack_blocks_kernel<<<(nb + kPackThreads - 1) / kPackThreads,
+                         kPackThreads, 0, stream>>>(
+        elems, elem_bits, n_elem, nb, cap, words, bits, flag, sync);
   }
   return (int)cudaGetLastError();
 }
@@ -291,6 +360,16 @@ extern "C" int jt_encode_blocks_per_sm() {
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, encode_blocks_kernel, kEncWarps * kTileBlocks,
           kEncodeSmem) != cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
+// Thread blocks of pack_blocks_kernel one SM holds, or -1 on an error.
+extern "C" int jt_pack_blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, pack_blocks_kernel, kPackThreads, 0) != cudaSuccess) {
     return -1;
   }
   return n;

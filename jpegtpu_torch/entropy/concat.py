@@ -19,12 +19,12 @@ A single scan's segments become one stream by K9 or K10, split as
 jpegtpu splits its twins: where jpegtpu's stream buffer fits its VMEM
 budget (`concat_mode` "pallas-resident") K9 places every segment on its
 own (one thread block per segment, global atomics at its two edge
-words); everywhere else K10 joins tiles of consecutive segments in
-shared memory first (one thread block per tile, one coalesced write of
-the tile's words, global atomics only at the tile's two edge words). The
-TPU's K10 cuts the stream into worst-case-sized VMEM chunks that an XLA
-epilogue ORs together; the card's tiles are sized by shared memory and
-the OR happens in the same launch. Both write the same stream.
+words, into a zeroed output); everywhere else K10 builds every output
+word once from the segments covering it, in one launch that scans the
+bit counts itself and stores the zeros past the total. The TPU's K10
+cuts the stream into worst-case-sized VMEM chunks that an XLA epilogue
+ORs together; those have no counterpart on the card. Both write the same
+stream.
 
 A batch stacks its images vertically, so image i owns a run of whole
 block rows and so a run of segments; K11 lays each image's segments back
@@ -162,34 +162,30 @@ def stream_concat_plain(segs: torch.Tensor, seg_bits: torch.Tensor,
     return to_int32(out[0]), inc[-1]
 
 
-def tile_limit(seg_words: int, smem_bytes: int) -> int:
-    """The most segments of seg_words words whose worst-case K10 window
-    (every segment's words full, plus one word for the first segment's
-    bit residue) fits smem_bytes of shared memory; 0 if not even one."""
-    return max(0, (smem_bytes // 4 - 1) // seg_words)
-
-
-def chunk_tile(nseg: int, seg_words: int, smem_bytes: int, sms: int) -> int:
-    """Segments per K10 tile: tile_limit, but no more than spreads the
-    segments over two tiles per SM."""
-    return min(tile_limit(seg_words, smem_bytes), -(-nseg // (2 * sms)))
+def chunked_blocks(out_words: int, resident: int) -> int:
+    """K10's thread blocks (of 1024 threads): as many as the card holds at
+    once (`resident`), but no more than one per 4096 stream words, since
+    each block scans every bit count before it writes."""
+    return max(1, min(resident, -(-out_words // 4096)))
 
 
 def stream_concat_chunked(segs: torch.Tensor, seg_bits: torch.Tensor,
                           out_words: int):
     """K10: the contract of stream_concat (segments [S, SW] int32 from K8
     + bit counts [S] -> (stream [out_words] int32, total bits, a 0-dim
-    int64 tensor)), joined in tiles of `chunk_tile` consecutive segments
-    for this card. A segment holds at most SW * 32 bits, as K8's do.
+    int64 tensor)), for streams past jpegtpu's resident budget. A segment
+    holds at most SW * 32 bits, as K8's do.
 
-    On CUDA tensors this launches csrc/concat.cu (stream_concat_chunked)
-    into a zeroed output: each thread block assembles one tile's window in
-    shared memory and writes it out once. It raises if one segment's
-    window does not fit the card's shared memory (SW past about 58,000
-    words, a cap past 452 at ws = 128). On CPU tensors it runs
-    `stream_concat_chunked_plain` in chunks of PLAIN_TILE segments."""
+    On CUDA tensors this is one launch of csrc/concat.cu
+    (stream_concat_chunked) that writes every stream word once, zeros past
+    the total included, and the total: each thread block scans the bit
+    counts in shared memory and builds its share of the words (those that
+    hold bits, then the zeros past the total). Past `rows_scan_fits`
+    (some 29,000 segments) a second launch writes the scan to global
+    scratch first. On CPU tensors it runs `stream_concat_chunked_plain` in
+    chunks of PLAIN_TILE segments."""
     nseg, sw = segs.shape
-    if seg_bits.shape != (nseg,):
+    if seg_bits.shape != (nseg,) or nseg < 1:
         raise ValueError(f"segs {tuple(segs.shape)} / seg_bits "
                          f"{tuple(seg_bits.shape)} do not match")
     if segs.device.type == "cpu":
@@ -197,25 +193,35 @@ def stream_concat_chunked(segs: torch.Tensor, seg_bits: torch.Tensor,
                                            PLAIN_TILE)
     _build.require_cuda(segs, "segs", torch.int32)
     _build.require_cuda(seg_bits, "seg_bits", torch.int32)
-    smem = _smem_optin(segs.device)
-    sms = torch.cuda.get_device_properties(segs.device).multi_processor_count
-    tile = chunk_tile(nseg, sw, smem, sms)
-    if tile < 1:
-        raise ValueError(
-            f"stream_concat_chunked: one segment of {sw} words needs "
-            f"{(sw + 1) * 4} B of shared memory; this card holds {smem} B "
-            f"per block")
-    inc = torch.cumsum(seg_bits, 0, dtype=torch.int64)
-    offs = inc - seg_bits
-    out = torch.zeros((out_words,), dtype=torch.int32, device=segs.device)
-    P, I = ctypes.c_void_p, ctypes.c_int
+    dev = segs.device
+    out = torch.empty((out_words,), dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = (None if rows_scan_fits(nseg, _smem_optin(dev))
+               else torch.empty((nseg,), dtype=torch.int64, device=dev))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     _build.launch(
-        "concat", "stream_concat_chunked",
-        (P, P, P, I, I, I, P, ctypes.c_longlong),
-        segs.data_ptr(), seg_bits.data_ptr(), offs.data_ptr(), nseg, sw,
-        tile, out.data_ptr(), out_words, device=segs.device,
+        "concat", "stream_concat_chunked", (P, P, P, I, I, I, P, L, P),
+        segs.data_ptr(), seg_bits.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), nseg, sw,
+        chunked_blocks(out_words, _chunked_resident(dev, nseg,
+                                                    scratch is not None)),
+        out.data_ptr(), out_words, total.data_ptr(), device=dev,
     )
-    return out, inc[-1]
+    return out, total
+
+
+@functools.lru_cache(maxsize=None)
+def _chunked_resident(device: torch.device, nseg: int, scratch: bool) -> int:
+    """K10's thread blocks the whole card holds at once."""
+    with torch.cuda.device(device):
+        per_sm = _build.query("concat", "stream_concat_chunked_per_sm",
+                              (ctypes.c_int, ctypes.c_int), nseg,
+                              int(scratch))
+    if per_sm < 1:
+        raise RuntimeError(f"stream_concat_chunked: no thread block of "
+                           f"{nseg} segments fits an SM ({per_sm})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return per_sm * sms
 
 
 @functools.lru_cache(maxsize=None)
@@ -269,8 +275,8 @@ def fits_vmem(nbh: int, nbw: int, cap: int, ncg: int,
 def chunk_plan(cap: int, ncg: int, budget: int | None = None) -> int:
     """jpegtpu's chunk size (pallas_concat.chunk_plan): row groups per
     worst-case VMEM chunk, 0 when even one does not fit (its tree
-    fallback). K10 on the card sizes its tiles by shared memory instead
-    (`chunk_tile`); this only names jpegtpu's mode."""
+    fallback). K10 on the card has no chunks; this only names jpegtpu's
+    mode."""
     budget = VMEM_BUDGET if budget is None else budget
     sr = cap + 1
     step_bytes = ncg * SUBLANES * sr * LANES * 4

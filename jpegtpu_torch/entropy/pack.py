@@ -17,6 +17,7 @@ cap * 32 flags overflow.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -172,8 +173,9 @@ def pack_blocks(words_t: torch.Tensor, bits_t: torch.Tensor, cap: int):
     block's bits are zero), the bit count always the full one, and
     overflow where a block has more than cap * 32 bits.
 
-    On CUDA tensors this launches csrc/pack.cu (pack_blocks); on CPU
-    tensors it runs `pack_blocks_plain`."""
+    On CUDA tensors this launches csrc/pack.cu (pack_blocks), one launch
+    that also writes the overflow flag; on CPU tensors it runs
+    `pack_blocks_plain`."""
     c0, e, nb = words_t.shape
     if c0 != 3 or bits_t.shape != (e, nb) or cap < 1:
         raise ValueError(f"bad shapes: words_t {tuple(words_t.shape)}, "
@@ -182,15 +184,33 @@ def pack_blocks(words_t: torch.Tensor, bits_t: torch.Tensor, cap: int):
         return pack_blocks_plain(words_t, bits_t, cap)
     _build.require_cuda(words_t, "words_t", torch.int32)
     _build.require_cuda(bits_t, "bits_t", torch.int32)
-    words = torch.empty((cap, nb), dtype=torch.int32, device=words_t.device)
-    bits = torch.empty((nb,), dtype=torch.int32, device=words_t.device)
+    dev = words_t.device
+    words = torch.empty((cap, nb), dtype=torch.int32, device=dev)
+    bits = torch.empty((nb,), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return words, bits, torch.zeros((), dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
     P, I = ctypes.c_void_p, ctypes.c_int
     _build.launch(
-        "pack", "pack_blocks", (P, P, I, I, I, P, P),
+        "pack", "pack_blocks", (P, P, I, I, I, P, P, P, P),
         words_t.data_ptr(), bits_t.data_ptr(), e, nb, cap, words.data_ptr(),
-        bits.data_ptr(), device=words_t.device,
+        bits.data_ptr(), overflow.data_ptr(), _flag_sync(dev).data_ptr(),
+        device=dev,
     )
-    return words, bits, (bits > cap * 32).any()
+    return words, bits, overflow
+
+
+def _flag_sync(device: torch.device) -> torch.Tensor:
+    """K7's two words of cross-block state on the current stream of
+    `device`: zeroed once, left zero by every launch (csrc/pack.cu)."""
+    stream = torch.cuda.current_stream(device)
+    return _stream_sync(stream.device_index, stream.cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_sync(device_index: int, stream: int) -> torch.Tensor:
+    return torch.zeros((2,), dtype=torch.int32,
+                       device=torch.device("cuda", device_index))
 
 
 def pack_blocks_plain(words_t: torch.Tensor, bits_t: torch.Tensor, cap: int):

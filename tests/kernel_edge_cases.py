@@ -1,8 +1,12 @@
-"""Adversarial inputs for K4 (jpegtpu_torch.entropy.pack.encode_blocks)
-and the transforms K1-K3 (jpegtpu_torch.ops.transform), made from a seed
-with numpy alone. tests/test_torch_kernel_edges.py holds the port's twins
-against jpegtpu on them, and the kernels against the twins on the card;
-chip_smoke.py's kernel_edges phase runs the same kernel checks."""
+"""Adversarial inputs for K4 (jpegtpu_torch.entropy.pack.encode_blocks),
+the transforms K1-K3 (jpegtpu_torch.ops.transform), K7
+(entropy.pack.pack_blocks) and K10 (entropy.concat.stream_concat_chunked),
+made from a seed with numpy alone. tests/test_torch_kernel_edges.py holds
+the port's twins against jpegtpu on the K1-K4 ones, and the kernels
+against the twins on the card; tests/test_torch_k7_k10.py holds numpy
+models of K7's and K10's index arithmetic against their twins on the K7
+and K10 ones, and tests/test_torch_gpu.py the kernels; chip_smoke.py's
+kernel_edges phase runs the same kernel checks."""
 import numpy as np
 
 # zeros before a nonzero: one ZRL short of 16, one, two and three ZRLs
@@ -109,3 +113,115 @@ def transform_image(h: int, w: int, seed: int, channels: int = 0):
                                  for _ in range(channels)], -1)
             img[8 * by:8 * by + 8, 8 * bx:8 * bx + 8] = tile
     return img
+
+
+def _msb_words(rng, bits: np.ndarray, n_words: int) -> np.ndarray:
+    """Random MSB-first words [..., n_words] uint32 holding `bits` [...]
+    bits each, zero past them."""
+    valid = (bits[..., None] - 32 * np.arange(n_words)).clip(0, 32)
+    keep = ((1 << valid) - 1) << (32 - valid)
+    words = rng.integers(0, 1 << 32, valid.shape, dtype=np.int64) & keep
+    return words.astype(np.uint32)
+
+
+# caps the K7 checks run at: one word, the first rung, the top rung
+K7_CAPS = (1, 8, 53)
+
+
+def k7_elements(nb: int, seed: int, n_elem: int = 64) -> tuple:
+    """nb blocks of n_elem fused elements (<= 96 bits each), as K7 takes
+    them: (words [3, n_elem, nb] uint32, bits [n_elem, nb] int32). The
+    edge blocks first: 96-bit elements after a first element of r bits,
+    at every residue r = 0..31 (every element past 32 and 64 bits, more
+    than the kernel stages); an empty block; a single bit in the last
+    element; blocks of exactly 32, 256 and 1696 bits (1, 8 and 53 words)
+    and one bit more (past caps 1, 8 and 53); elements of 32, 33, 64 and
+    65 bits; 8 and 9 elements past 32 bits (as many as the kernel stages,
+    and one more); then sparse Q50-like blocks of short elements; cut to
+    nb."""
+    rng = np.random.default_rng(seed)
+    e = n_elem
+    rows = []
+
+    def add(lens: dict):
+        row = np.zeros(e, np.int64)
+        for k, v in lens.items():
+            if k < e:
+                row[k] = v
+        rows.append(row)
+
+    for r in range(32):
+        add({0: r, **{k: 96 for k in range(1, e)}})
+    add({})
+    add({e - 1: 1})
+    for words in (1, 8, 53):
+        n96, rest = divmod(32 * words, 96)
+        exact = {k: 96 for k in range(n96)}
+        if rest:
+            exact[n96] = rest
+        add(exact)
+        add({**exact, e - 1: 1})
+    add({k: (32, 33, 64, 65)[k % 4] for k in range(e)})
+    for n_long in (8, 9):
+        picks = rng.choice(np.arange(e), min(n_long, e), replace=False)
+        add({**{int(k): 5 for k in rng.choice(np.arange(e), 10)},
+             **{int(k): int(rng.integers(33, 97)) for k in picks}})
+    lens = np.stack(rows)
+    fill = max(nb - lens.shape[0], 0)
+    sparse = np.zeros((fill, e), np.int64)
+    for i in range(fill):
+        k = rng.choice(np.arange(e), int(rng.integers(0, 12)), replace=False)
+        sparse[i, k] = rng.integers(2, 27, len(k))
+    bits = np.concatenate([lens, sparse])[:nb]
+    words = _msb_words(rng, bits, 3)  # [nb, e, 3]
+    return (np.ascontiguousarray(words.transpose(2, 1, 0)),
+            np.ascontiguousarray(bits.T).astype(np.int32))
+
+
+def k10_segments(kind: str, nseg: int, sw: int, seed: int) -> tuple:
+    """nseg segments of sw words, zero past each one's bits, as K8 makes
+    them: (segs [nseg, sw] uint32, seg_bits [nseg] int32). kind "mixed":
+    empty, shorter than a word, full and any; "short": 0-31 bits;
+    "aligned": multiples of 32 (every segment and the total end on a word
+    boundary); "partial": any, the total not a multiple of 32; "empty":
+    no bits at all; "full": every segment full."""
+    rng = np.random.default_rng(seed)
+    top = sw * 32
+    if kind == "short":
+        bits = rng.integers(0, 32, nseg)
+    elif kind == "aligned":
+        bits = 32 * rng.integers(0, sw + 1, nseg)
+    elif kind == "empty":
+        bits = np.zeros(nseg, np.int64)
+    elif kind == "full":
+        bits = np.full(nseg, top)
+    else:
+        bits = rng.integers(0, top + 1, nseg)
+        bits[rng.random(nseg) < 0.25] = 0
+        bits[rng.random(nseg) < 0.25] = rng.integers(1, 32)
+        bits[rng.random(nseg) < 0.1] = top
+        if kind == "partial" and bits.sum() % 32 == 0:
+            bits[-1] = 7 if bits[-1] != 7 else 9
+    return _msb_words(rng, bits, sw), bits.astype(np.int32)
+
+
+# (kind, segments, words a segment, stream words past the total's words):
+# one-segment streams, a total on a word boundary with no zeros after
+# it, a last word that is partial, empty and sub-word segments
+K10_CASES = (
+    ("mixed", 300, 9, 100),
+    ("short", 200, 2, 7),
+    ("aligned", 150, 5, 0),
+    ("aligned", 150, 5, 33),
+    ("partial", 77, 4, 0),
+    ("mixed", 1, 40, 5),
+    ("full", 1, 3, 0),
+    ("empty", 50, 3, 10),
+)
+
+
+def k10_case(i: int) -> tuple:
+    """K10_CASES[i] made: (segs, seg_bits, out_words)."""
+    kind, nseg, sw, extra = K10_CASES[i]
+    segs, bits = k10_segments(kind, nseg, sw, seed=100 + i)
+    return segs, bits, (int(bits.astype(np.int64).sum()) + 31) // 32 + extra

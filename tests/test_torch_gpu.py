@@ -19,6 +19,7 @@ from jpegtpu_torch.entropy.device import (dc_differences, symbol_histograms,
                                           y_dc_differences)
 from jpegtpu_torch.ops import transform
 
+from kernel_edge_cases import K10_CASES, K7_CAPS, k10_case, k7_elements
 from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.gpu
@@ -428,34 +429,91 @@ def test_batch_encode_matches_cpu_in_int32_mode(cuda, kw):
     (318, 200, 1), (318, 200, 2),
 ])
 def test_stream_concat_chunked_matches_plain_and_k9(cuda, cap, nbw, tiles):
-    """K10 against its plain version at the card's tile size and against
-    K9 on K8's segments. The segment count sets the tile: chunk_tile
-    spreads S segments over two tiles per SM, so 2 * SMs * (T - 1) + SMs
-    segments give tiles of T segments, up to what shared memory holds (8
-    at cap 53; 1 at 4:2:0's top rung, 318-word MCU streams, 163 KB).
-    Ragged rows and last tile, sub-byte and empty segments."""
+    """K10 against its plain version and against K9 on K8's segments, from
+    a few hundred segments to a few thousand (2 * SMs * (tiles - 1) + SMs
+    of them, the segment counts that once set K10's tiles), up to 4:2:0's
+    top rung (318-word MCU streams). Ragged rows, sub-byte and empty
+    segments; one launch a call."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     nbh = -(-(2 * sms * (tiles - 1) + sms) // -(-nbw // 128))
     words, bits = _streams(cuda, cap, nbh * nbw, cap + nbh)
     bits[: 2 * nbw] = 0  # two rows of empty segments
     segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
-    smem = concat._smem_optin(cuda)
-    t = concat.chunk_tile(segs.shape[0], segs.shape[1], smem, sms)
-    assert t == min(tiles, concat.tile_limit(segs.shape[1], smem))
     n = concat.stream_words(nbh * nbw, cap)
+    before = _build.LAUNCHES["stream_concat_chunked"]
     got, total = concat.stream_concat_chunked(segs, seg_bits, n)
+    assert _build.LAUNCHES["stream_concat_chunked"] == before + 1
     want, want_total = concat.stream_concat_chunked_plain(segs, seg_bits, n,
-                                                          t)
+                                                          tiles)
     k9, k9_total = concat.stream_concat(segs, seg_bits, n)
+    assert total.dtype == torch.int64 and total.device.type == "cuda"
     assert int(total) == int(want_total) == int(k9_total)
     assert torch.equal(got, want) and torch.equal(got, k9)
 
 
-def test_stream_concat_chunked_refuses_a_segment_past_the_card(cuda):
-    segs = torch.zeros((2, 128 * 460), dtype=torch.int32, device=cuda)
-    seg_bits = torch.zeros((2,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        concat.stream_concat_chunked(segs, seg_bits, 64)
+def test_stream_concat_chunked_joins_segments_past_shared_memory(cuda):
+    """K10 keeps no segment in shared memory: two segments of 58,880
+    words (past what one thread block holds) join as K9 joins them."""
+    segs, seg_bits = _segments(cuda, 2, 128 * 460, 11)
+    n = 2 * 128 * 460 + 64
+    got = concat.stream_concat_chunked(segs, seg_bits, n)
+    want = concat.stream_concat(segs, seg_bits, n)
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+
+
+@pytest.mark.parametrize("scan", ["shared", "global"])
+@pytest.mark.parametrize("case", range(len(K10_CASES)))
+def test_stream_concat_chunked_edges_match_plain(cuda, monkeypatch, case,
+                                                 scan):
+    """K10 on tests/kernel_edge_cases.py's segments: empty and sub-word
+    segments, totals on a word boundary with no zeros after them, a
+    partial last word, one-segment streams; with the scan in shared
+    memory and in global scratch (forced by a smaller limit: two
+    launches)."""
+    segs, seg_bits, out_words = k10_case(case)
+    if scan == "global":
+        monkeypatch.setattr(concat, "_smem_optin", lambda dev: 256)
+    s = torch.from_numpy(segs.view(np.int32)).to(cuda)
+    b = torch.from_numpy(seg_bits).to(cuda)
+    got, total = concat.stream_concat_chunked(s, b, out_words)
+    want, want_total = concat.stream_concat_chunked_plain(s, b, out_words, 3)
+    assert int(total) == int(want_total) and torch.equal(got, want)
+
+
+def test_stream_concat_chunked_many_segments(cuda):
+    """K10 over 6,000 segments: a scan of 48 KB of shared memory (past
+    the default limit) and a grid of the card's resident blocks."""
+    segs, seg_bits = _segments(cuda, 6000, 7, 12)
+    n = 6000 * 7 + 100
+    got = concat.stream_concat_chunked(segs, seg_bits, n)
+    want = concat.stream_concat(segs, seg_bits, n)
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+
+
+@pytest.mark.parametrize("cap", K7_CAPS)
+@pytest.mark.parametrize("nb,n_elem", [(1, 64), (31, 64), (33, 64),
+                                       (1000, 64), (300, 130), (40, 1)])
+def test_pack_blocks_edges_match_plain(cuda, nb, n_elem, cap):
+    """K7 on tests/kernel_edge_cases.py's elements: 96-bit elements at
+    every residue, more long elements than the kernel stages, exact word
+    ends and one bit past caps 1, 8 and 53; ragged warp tiles (31, 33),
+    elements past one staged chunk (130). One launch a call, the
+    overflow flag its own."""
+    words_t, bits_t = k7_elements(nb, seed=nb + n_elem, n_elem=n_elem)
+    w = torch.from_numpy(words_t.view(np.int32)).to(cuda)
+    b = torch.from_numpy(bits_t).to(cuda)
+    before = dict(_build.LAUNCHES)
+    got = pack.pack_blocks(w, b, cap)
+    assert {k for k in before if _build.LAUNCHES[k] != before[k]} == {
+        "pack_blocks"}
+    assert _build.LAUNCHES["pack_blocks"] == before["pack_blocks"] + 1
+    want = pack.pack_blocks_plain(w, b, cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(got[2]) == bool(want[2])
+    # the next call on the stream starts from a reset flag
+    quiet = pack.pack_blocks(w[:, :, -1:].contiguous(),
+                             torch.zeros_like(b[:, -1:]), cap)
+    assert not bool(quiet[2])
 
 
 @pytest.mark.parametrize("cap", [1, 8, 16, 53])

@@ -144,18 +144,6 @@ def test_chunked_plain_matches_k9_plain(tile, cap):
                        want)
 
 
-def test_chunk_tile_sizes_tiles_by_shared_memory():
-    smem, sms = 232448, 132  # an H100's opt-in shared memory and SMs
-    # 8K gray at cap 8: 4320 segments of 1152 words
-    assert concat.chunk_tile(4320, 1152, smem, sms) == 17
-    # 8K 4:2:0 at the top rung: one segment of 128 * 319 words per tile
-    assert concat.chunk_tile(1080, 128 * 319, smem, sms) == 1
-    # past about 58,000 words not even one segment fits
-    assert concat.chunk_tile(10, 128 * 454, smem, sms) == 0
-    # few segments spread over the SMs
-    assert concat.chunk_tile(10, 1152, smem, sms) == 1
-
-
 @pytest.fixture
 def k10_route(monkeypatch):
     """Shrink the resident budget so small frames take K10's route, and

@@ -1,7 +1,9 @@
-"""Time this tree's K1-K4 (jpegtpu_torch/csrc/transform.cu and pack.cu)
-against another checkout's, on one CUDA card, in one process.
+"""Time this tree's K1-K4, K7 and K10 (jpegtpu_torch/csrc/transform.cu,
+pack.cu and concat.cu) against another checkout's, on one CUDA card, in
+one process.
 
     python3 tools/torch_kernel_ab.py --parent DIR [--out FILE]
+        [--kernels k1-k4,k7,k10]
 
 DIR holds the other checkout (for example `git archive` of the parent
 commit, unpacked); its jpegtpu_torch is imported as jpegtpu_torch_parent
@@ -14,9 +16,21 @@ this, other) with chip_smoke.time_ms. K4 at 3024 x 4032 (gray and 4:2:0
 at Q50, and seeded noise at Q100, whose dense blocks reach the retry
 ladder's rungs) runs at caps 8, 16 and 53, beside a third K4,
 tools/k4_warp_per_block.cu (a warp per 8x8 block), built here and held
-to the same outputs (turns: other, this, warp, warp, this, other). One
-JSON line per kernel and shape, with the card's name and power limit,
-and one with each K4's thread blocks an SM (the warp K4's at each cap).
+to the same outputs (turns: other, this, warp, warp, this, other).
+K7 runs on the staged path's fused elements of the 3024 x 4032 gray
+levels, Q50 and Q100 seeded noise, at caps 8, 16 and 53, beside
+tools/k7_staged.cu (its elements staged in shared memory, built here and
+held to the same outputs, in the same turns), with the compare-and-reduce
+that the parent's wrapper runs after its launch timed alone and K7 built
+at other numbers of elements a round trip. K10 runs on K8's segments of
+the 7680 x 4320 frame, gray and 4:2:0, and of the 3024 x 4032 4:2:0 Q100
+noise ladder's chunked rungs (16 and 53), beside
+tools/k10_warp_per_segment.cu (a warp per segment, built here and held
+to the same outputs, in the same turns as the warp K4), and at 8K over a
+sweep of its thread-block counts, with the stream's zero-fill alone and
+K10 on segments with no bits beside it. One JSON line per kernel and
+shape, with the card's name and power limit, and one with each K4's,
+K7's and K10's thread blocks an SM (the warp K4's at each cap).
 """
 from __future__ import annotations
 
@@ -40,7 +54,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from jpegtpu_torch import (EncodeConfig, _build, color_pipeline,  # noqa: E402
                            pipeline, tables)
-from jpegtpu_torch.entropy import pack  # noqa: E402
+from jpegtpu_torch.entropy import concat, device, pack  # noqa: E402
+from jpegtpu_torch.entropy import treepack  # noqa: E402
 from jpegtpu_torch.entropy.device import (dc_differences,  # noqa: E402
                                           symbol_histograms)
 from jpegtpu_torch.ops import transform  # noqa: E402
@@ -57,7 +72,8 @@ def load_other(root: str):
     spec.loader.exec_module(mod)
     return (importlib.import_module("jpegtpu_torch_parent._build"),
             importlib.import_module("jpegtpu_torch_parent.ops.transform"),
-            importlib.import_module("jpegtpu_torch_parent.entropy.pack"))
+            importlib.import_module("jpegtpu_torch_parent.entropy.pack"),
+            importlib.import_module("jpegtpu_torch_parent.entropy.concat"))
 
 
 CAPS = (8, 16, 53)
@@ -91,6 +107,135 @@ def load_warp_k4():
     return encode, lib.jt_encode_blocks_warp_per_sm
 
 
+K10_WARP_SRC = os.path.join(ROOT, "tools", "k10_warp_per_segment.cu")
+K10_WARP_SO = os.path.join(ROOT, "build", "tools",
+                           "libk10_warp_per_segment.so")
+
+
+def load_warp_k10():
+    """tools/k10_warp_per_segment.cu, built with the package's nvcc flags:
+    (join(segs, seg_bits, out_words, blocks=None) -> (stream, total), its
+    thread blocks an SM for nseg segments)."""
+    deps = [K10_WARP_SRC] + sorted(glob.glob(os.path.join(_build.CSRC,
+                                                          "*.cuh")))
+    _build.compile_if_stale(
+        K10_WARP_SO, deps,
+        lambda out: _build._nvcc_command(K10_WARP_SRC, out))
+    lib = ctypes.CDLL(K10_WARP_SO)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.jt_concat_warp_per_segment.argtypes = [P, P, I, I, I, P, L, P, P]
+    lib.jt_concat_warp_per_segment_per_sm.argtypes = [I]
+
+    def join(segs, seg_bits, out_words, blocks=None):
+        nseg, sw = segs.shape
+        if blocks is None:
+            sms = torch.cuda.get_device_properties(
+                segs.device).multi_processor_count
+            blocks = concat.chunked_blocks(
+                out_words,
+                sms * lib.jt_concat_warp_per_segment_per_sm(nseg))
+        out = torch.empty((out_words,), dtype=torch.int32,
+                          device=segs.device)
+        total = torch.empty((), dtype=torch.int64, device=segs.device)
+        err = lib.jt_concat_warp_per_segment(
+            segs.data_ptr(), seg_bits.data_ptr(), nseg, sw, blocks,
+            out.data_ptr(), out_words, total.data_ptr(),
+            torch.cuda.current_stream(segs.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"concat_warp_per_segment: cudaError {err}")
+        return out, total
+
+    return join, lib.jt_concat_warp_per_segment_per_sm
+
+
+K7_STAGED_SRC = os.path.join(ROOT, "tools", "k7_staged.cu")
+K7_STAGED_SO = os.path.join(ROOT, "build", "tools", "libk7_staged.so")
+
+
+def load_staged_k7():
+    """tools/k7_staged.cu, built with the package's nvcc flags:
+    (pack(words_t, bits_t, cap) -> (words, bits, overflow), its thread
+    blocks an SM)."""
+    deps = [K7_STAGED_SRC] + sorted(glob.glob(os.path.join(_build.CSRC,
+                                                           "*.cuh")))
+    _build.compile_if_stale(
+        K7_STAGED_SO, deps,
+        lambda out: _build._nvcc_command(K7_STAGED_SRC, out))
+    lib = ctypes.CDLL(K7_STAGED_SO)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.jt_pack_blocks_staged.argtypes = [P, P, I, I, I, P, P, P, P, P]
+    sync = torch.zeros((2,), dtype=torch.int32, device="cuda")
+
+    def pack_staged(words_t, bits_t, cap):
+        _, e, nb = words_t.shape
+        dev = words_t.device
+        words = torch.empty((cap, nb), dtype=torch.int32, device=dev)
+        bits = torch.empty((nb,), dtype=torch.int32, device=dev)
+        flag = torch.empty((), dtype=torch.bool, device=dev)
+        err = lib.jt_pack_blocks_staged(
+            words_t.data_ptr(), bits_t.data_ptr(), e, nb, cap,
+            words.data_ptr(), bits.data_ptr(), flag.data_ptr(),
+            sync.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"pack_blocks_staged: cudaError {err}")
+        return words, bits, flag
+
+    return pack_staged, lib.jt_pack_blocks_staged_per_sm
+
+
+def load_k7_group(group: int):
+    """This tree's K7 built with kGroup = group from a copy of
+    csrc/pack.cu under build/tools/: (pack(words_t, bits_t, cap) ->
+    (words, bits, overflow), thread blocks an SM, ptxas's lines for it)."""
+    src = os.path.join(ROOT, "build", "tools", f"k7_group{group}.cu")
+    so = os.path.join(ROOT, "build", "tools", f"libk7_group{group}.so")
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    text = open(os.path.join(_build.CSRC, "pack.cu")).read()
+    text = text.replace("constexpr int kGroup = 6;",
+                        f"constexpr int kGroup = {group};")
+    text = text.replace('#include "cp_async.cuh"',
+                        f'#include "{_build.CSRC}/cp_async.cuh"')
+    with open(src, "w") as f:
+        f.write(text)
+    report = subprocess.run(_build._nvcc_command(src, so), check=True,
+                            capture_output=True, text=True)
+    ptxas = [ln.strip() for ln in (report.stdout + report.stderr).split(
+        "\n") if "pack_blocks" in ln or "registers" in ln or "spill" in ln]
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.jt_pack_blocks.argtypes = [P, P, I, I, I, P, P, P, P, P]
+    sync = torch.zeros((2,), dtype=torch.int32, device="cuda")
+
+    def pack_group(words_t, bits_t, cap):
+        _, e, nb = words_t.shape
+        dev = words_t.device
+        words = torch.empty((cap, nb), dtype=torch.int32, device=dev)
+        bits = torch.empty((nb,), dtype=torch.int32, device=dev)
+        flag = torch.empty((), dtype=torch.bool, device=dev)
+        err = lib.jt_pack_blocks(
+            words_t.data_ptr(), bits_t.data_ptr(), e, nb, cap,
+            words.data_ptr(), bits.data_ptr(), flag.data_ptr(),
+            sync.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"pack_blocks group {group}: cudaError {err}")
+        return words, bits, flag
+
+    return pack_group, lib.jt_pack_blocks_per_sm(), ptxas[:3]
+
+
+def k10_blocks(segs, seg_bits, out_words, blocks):
+    """This tree's K10 launched with `blocks` thread blocks."""
+    out = torch.empty((out_words,), dtype=torch.int32, device=segs.device)
+    total = torch.empty((), dtype=torch.int64, device=segs.device)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _build.launch(
+        "concat", "stream_concat_chunked", (P, P, P, I, I, I, P, L, P),
+        segs.data_ptr(), seg_bits.data_ptr(), None, segs.shape[0],
+        segs.shape[1], blocks, out.data_ptr(), out_words,
+        total.data_ptr(), device=segs.device)
+    return out, total
+
+
 def equal(a, b) -> bool:
     if isinstance(a, (tuple, list)):
         return all(equal(x, y) for x, y in zip(a, b))
@@ -101,7 +246,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--kernels", default="k1-k4,k7,k10",
+                    help="comma-separated groups: k1-k4, k7, k10")
     args = ap.parse_args()
+    groups = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device available", file=sys.stderr)
         return 2
@@ -117,14 +265,23 @@ def main() -> int:
             out.write(line + "\n")
 
     t0 = time.perf_counter()
-    obuild, otransform, opack = load_other(os.path.abspath(args.parent))
+    obuild, otransform, opack, oconcat = load_other(
+        os.path.abspath(args.parent))
     _build.build_all()
     obuild.build_all()
     warp_k4, warp_per_sm = load_warp_k4()
+    warp_k10, warp_k10_per_sm = load_warp_k10()
+    staged_k7, staged_k7_per_sm = load_staged_k7()
     say(phase="build", seconds=time.perf_counter() - t0)
     say(phase="blocks_per_sm", threads=128, caps=list(CAPS),
         encode_blocks=_build.query("pack", "encode_blocks_per_sm", ()),
-        encode_blocks_warp=[warp_per_sm(c) for c in CAPS])
+        encode_blocks_warp=[warp_per_sm(c) for c in CAPS],
+        pack_blocks=_build.query("pack", "pack_blocks_per_sm", ()),
+        pack_blocks_staged=staged_k7_per_sm(),
+        stream_concat_chunked={n: _build.query(
+            "concat", "stream_concat_chunked_per_sm",
+            (ctypes.c_int, ctypes.c_int), n, 0) for n in (1080, 4320)},
+        k10_warp_per_segment={n: warp_k10_per_sm(n) for n in (1080, 4320)})
     dev = torch.device("cuda")
 
     def ab(kernel, path, other, this):
@@ -194,6 +351,132 @@ def main() -> int:
                 symbol_histograms(ly, dy, 0) + symbol_histograms(lc, dc, 1),
                 ("lum", "chrom"), dev)
             k4(f"{path}_restart_2pass", [(ly, dy, hl), (lc, dc, hc)])
+
+    def three(path, other, this, alt, alt_name, **kv):
+        """other, this and another design in turns: other, this, alt,
+        alt, this, other; all three outputs equal."""
+        want = this()
+        same = equal(other(), want) and equal(alt(), want)
+        t = [cs.time_ms(f) for f in (other, this, alt, alt, this, other)]
+        say(path=path, equal=bool(same), before_ms=[t[0], t[5]],
+            after_ms=[t[1], t[4]], **{f"{alt_name}_ms": [t[2], t[3]]},
+            **kv)
+        if not same:
+            raise SystemExit(f"{kv} {path}: outputs differ")
+
+    def k7(path, quality, noise):
+        st = tables.encoder_state(EncodeConfig(quality=quality), dev)
+        lv = transform.transform(noise, st, False)
+        values, lengths = device.symbolize_elements64(lv.T.contiguous())
+        words_t, bits_t = treepack._fuse_subslots(values, lengths, 3)
+        del values, lengths
+        for cap in CAPS:
+            three(f"{path}_cap{cap}",
+                  lambda cap=cap: opack.pack_blocks(words_t, bits_t, cap),
+                  lambda cap=cap: pack.pack_blocks(words_t, bits_t, cap),
+                  lambda cap=cap: staged_k7(words_t, bits_t, cap), "staged",
+                  kernel="K7")
+        want = pack.pack_blocks(words_t, bits_t, 8)
+        sweep = {}
+        for group in (4, 8, 12):
+            fn, per_sm, ptxas = load_k7_group(group)
+            if not equal(fn(words_t, bits_t, 8), want):
+                raise SystemExit(f"K7 group {group}: outputs differ")
+            sweep[group] = {
+                "blocks_per_sm": per_sm, "ptxas": ptxas,
+                "ms": cs.time_ms(lambda fn=fn: fn(words_t, bits_t, 8))}
+        sweep[6] = {"ms": cs.time_ms(lambda: pack.pack_blocks(
+            words_t, bits_t, 8))}
+        say(kernel="K7 elements a round trip", path=f"{path}_cap8",
+            groups=sweep)
+        bits = want[1]
+        say(kernel="K7 overflow compare and reduce", path=path,
+            ms=cs.time_ms(lambda: (bits > 8 * 32).any()))
+
+    def k10(path, segs, seg_bits, out_words):
+        three(path, lambda: oconcat.stream_concat_chunked(segs, seg_bits,
+                                                           out_words),
+              lambda: concat.stream_concat_chunked(segs, seg_bits,
+                                                   out_words),
+              lambda: warp_k10(segs, seg_bits, out_words), "warp",
+              kernel="K10",
+              segments=int(segs.shape[0]), segment_words=int(segs.shape[1]),
+              stream_words=out_words)
+
+    def k10_8k(color):
+        h, w = cs.BIG_H, cs.BIG_W
+        st = tables.encoder_state(
+            EncodeConfig(subsampling="420") if color else EncodeConfig(), dev)
+        if color:
+            rgb = torch.from_numpy(cs.make_color_image(h, w)).to(dev)
+            ly = transform.transform_rgb_y(rgb, st, False)
+            lc = transform.transform_rgb_chroma(rgb, st, False, "420")
+            nbh, nbw = h // 16, w // 16
+            dcd = color_pipeline.color_dc_differences(ly, lc, nbh, nbw, "420")
+            words, bits, _ = color_pipeline.mcu_streams(ly, lc, dcd, st, nbh,
+                                                        nbw, "420", 8)
+        else:
+            lv = transform.transform(
+                torch.from_numpy(cs.make_image(h, w)).to(dev), st, False)
+            nbh, nbw = h // 8, w // 8
+            words, bits = pack.encode_blocks(lv, dc_differences(lv[0]),
+                                             st.huff, 8)
+        segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
+        out_words = concat.stream_words(nbh * nbw, words.shape[0])
+        path = "8k_420" if color else "8k_gray"
+        k10(path, segs, seg_bits, out_words)
+        resident = concat._chunked_resident(dev, int(segs.shape[0]), False)
+        want = concat.stream_concat_chunked(segs, seg_bits, out_words)
+        sweep = {}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for blocks in sorted({sms, 2 * sms, 4 * sms, resident}):
+            got = k10_blocks(segs, seg_bits, out_words, blocks)
+            if not equal(got, want):
+                raise SystemExit(f"K10 at {blocks} blocks: outputs differ")
+            sweep[blocks] = cs.time_ms(
+                lambda b=blocks: k10_blocks(segs, seg_bits, out_words, b))
+        say(kernel="K10 thread blocks", path=path, resident=resident,
+            ms=sweep)
+        # its parts: the stream's zero-fill alone, and K10 on segments
+        # with no bits (the scan, then zeros only)
+        empty = torch.zeros_like(seg_bits)
+        say(kernel="K10 parts", path=path, zero_fill_ms=cs.time_ms(
+            lambda: torch.zeros((out_words,), dtype=torch.int32,
+                                device=dev)),
+            no_bits_ms=cs.time_ms(lambda: concat.stream_concat_chunked(
+                segs, empty, out_words)))
+
+    def k10_ladder():
+        """The 3024 x 4032 4:2:0 Q100 noise ladder's chunked rungs."""
+        h, w = cs.H, cs.W
+        rgb = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+        st = tables.encoder_state(EncodeConfig(
+            quality=100, dct_dtype="int32", subsampling="420"), dev)
+        ly = transform.transform_rgb_y(rgb, st, True)
+        lc = transform.transform_rgb_chroma(rgb, st, True, "420")
+        nbh, nbw = h // 16, w // 16
+        dcd = color_pipeline.color_dc_differences(ly, lc, nbh, nbw, "420")
+        for cap in (16, 53):
+            words, bits, _ = color_pipeline.mcu_streams(ly, lc, dcd, st, nbh,
+                                                        nbw, "420", cap)
+            segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
+            k10(f"420_q100_noise_cap{cap}", segs, seg_bits,
+                concat.stream_words(nbh * nbw, words.shape[0]))
+
+    if "k7" in groups:
+        h, w = cs.H, cs.W
+        k7("gray", 50, torch.from_numpy(cs.make_image(h, w)).to(dev))
+        k7("gray_q100_noise", 100, torch.from_numpy(
+            np.random.default_rng(7).integers(0, 256, (h, w),
+                                              dtype=np.uint8)).to(dev))
+    if "k10" in groups:
+        k10_8k(False)
+        k10_8k(True)
+        k10_ladder()
+    if "k1-k4" not in groups:
+        say(phase="done", seconds=time.perf_counter() - t0)
+        return 0
 
     h, w = cs.H, cs.W
     gray("gray", torch.from_numpy(cs.make_image(h, w)).to(dev),
