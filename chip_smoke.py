@@ -26,12 +26,15 @@ images of 3024 x 4032 at 4:2:0, which merges its MCU streams by
 jpegtpu's slot-major route: K2, K3, K4, a gather, K6, K8, K11.
 Every source is built anew; the build line lists each kernel's registers,
 spills and shared memory, and the run fails if a kernel of transform.cu,
-pack.cu or concat.cu (K1-K4, K7-K11) spills. Right after the build, one
-torch.profiler session counts the device kernels of one K12, K11, K10
-and K7 wrapper call (two, one, one and one), and the kernel_edges phase
-holds K1-K4, K7 and K10 against their plain versions, equal to the last
-level and word, on tests/kernel_edge_cases.py's adversarial blocks,
-ragged grids, fused elements and segments and on the main paths' images.
+pack.cu, merge.cu or concat.cu (K1-K11) spills. Right after the build,
+one torch.profiler session counts the device kernels of one K12, K11,
+K10, K9, K7 and K5 wrapper call (two, then one each), and the
+kernel_edges phase holds K1-K5, K7, K9 and K10 against their plain
+versions, equal to the last level and word, on
+tests/kernel_edge_cases.py's adversarial blocks, ragged grids, fused
+elements, MCUs and segments (K9 and K10 with and without the tail
+padding) and on the main paths' images. K9 and K10 are timed as the
+paths call them, with the tail padding inside.
 For each path
 it holds every kernel against its plain PyTorch version at the path's
 shapes (K12 also at restart_interval 1, with a ragged last segment, and
@@ -75,8 +78,9 @@ from jpegtpu_torch.ops import transform
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from kernel_edge_cases import (K7_CAPS, K10_CASES, k4_blocks,  # noqa: E402
-                               k7_elements, k10_case, transform_image)
+from kernel_edge_cases import (K7_CAPS, K9_CASES, K10_CASES,  # noqa: E402
+                               k4_blocks, k5_streams, k7_elements, k9_case,
+                               k10_case, transform_image)
 
 H, W = 3024, 4032  # 12.19 MPix, the reference's image size
 LADDER_H, LADDER_W = 512, 512
@@ -90,8 +94,8 @@ K6_RUNG16_N = 64  # 512 x 512 images of its rung-16 check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPS = 20
-# sources whose kernels must build without spill stores (K1-K4, K7-K11)
-NO_SPILL_SOURCES = ("transform", "pack", "concat")
+# sources whose kernels must build without spill stores (K1-K11)
+NO_SPILL_SOURCES = ("transform", "pack", "merge", "concat")
 # K10's segment counts at 8K, cap 8: gray (4,320 row segments of 128
 # blocks) and 4:2:0 (1,080 of 128 MCUs)
 K10_8K_SEGMENTS = {"8k_gray": 4320, "8k_420": 1080}
@@ -119,10 +123,18 @@ def ptxas_lines(report: str) -> list:
 
 def blocks_per_sm() -> dict:
     """Thread blocks one SM holds of each transform kind (256 threads), of
-    K4 and K7 (128 threads, at any cap) and of K10 (256 threads, its scan
-    of the 8K frame's segment counts in shared memory): the CUDA runtime's
-    occupancy calculator on the built kernels."""
+    K4 and K7 (128 threads, at any cap), of K5 (128 threads, at caps 8,
+    16 and 53: its stage grows to 16 words a block), of K9 (512 threads,
+    the 3024 x 4032 gray scan's 1,512 segment counts in shared memory) and
+    of K10 (1024 threads, the 8K frame's segment counts): the CUDA
+    runtime's occupancy calculator on the built kernels."""
     return {
+        "merge_mcu_kernel": {
+            cap: _build.query("merge", "merge_mcu_per_sm", (ctypes.c_int,),
+                              cap) for cap in (8, 16, MAX_WORDS_PER_BLOCK)},
+        "stream_concat_kernel": _build.query(
+            "concat", "stream_concat_per_sm", (ctypes.c_int, ctypes.c_int),
+            (H // 8) * (W // 8) // 128, 0),
         "transform_kernel": {
             kind: _build.query("transform", "transform_blocks_per_sm",
                                (ctypes.c_int,), i)
@@ -213,8 +225,8 @@ def stage_breakdown(img, cfg, reps: int = 5) -> dict:
         words, bits = pack.encode_blocks(lv, dc_differences(lv[0]),
                                          state.huff, cap)
         t = mark("dc_diff_and_K4_pack", t)
-        stream, total = concat.concat_stream(words, bits, nbh, nbw)
-        stream, total = concat.apply_tail_padding(stream, total, cfg.pad_ones)
+        stream, total = concat.concat_stream(words, bits, nbh, nbw,
+                                             pad_ones=cfg.pad_ones)
         t = mark(concat_label(nbh, nbw, cap), t)
         ov, total_bits = torch.stack(
             [(bits > cap * 32).any().to(torch.int64), total]).tolist()
@@ -258,8 +270,8 @@ def color_stage_breakdown(img, cfg, reps: int = 5) -> dict:
         t = mark("K4_pack_x2", t)
         words, bits = merge.merge_mcu(wy, by, wc, bc, nmch, nmcw, "420")
         t = mark("K5_merge_mcu", t)
-        stream, total = concat.concat_stream(words, bits, nmch, nmcw)
-        stream, total = concat.apply_tail_padding(stream, total, cfg.pad_ones)
+        stream, total = concat.concat_stream(words, bits, nmch, nmcw,
+                                             pad_ones=cfg.pad_ones)
         t = mark(concat_label(nmch, nmcw, words.shape[0]), t)
         ov, total_bits = torch.stack(
             [(torch.cat([by, bc]) > cap * 32).any().to(torch.int64),
@@ -313,17 +325,73 @@ def seeded_streams(c: int, n: int, seed: int, lengths=None):
             torch.from_numpy(bits.astype(np.int32)).cuda())
 
 
+def k9_check_and_spec(name: str, segs, seg_bits, out_words: int,
+                      pad_ones: bool):
+    """K9 against its plain version at a path's shapes, without the tail
+    padding and with the path's own (the plain version, then
+    apply_tail_padding) -> (result, timing spec). The spec times K9 as the
+    path calls it, beside its bound: the segments' valid words and bit
+    counts in, the stream's valid words and the padded total out; the
+    contract also writes every zero of the stream past the total, the
+    second bound."""
+    got = concat.stream_concat(segs, seg_bits, out_words)
+    want = concat.stream_concat_plain(segs, seg_bits, out_words)
+    padded = concat.stream_concat(segs, seg_bits, out_words, pad_ones)
+    padded_p = concat.apply_tail_padding(want[0].clone(), want[1], pad_ones)
+    result = equal_streams(name, (got[0], got[1].reshape(1)),
+                           (want[0], want[1].reshape(1)))
+    result_pad = equal_streams(f"{name} with the tail padding",
+                               (padded[0], padded[1].reshape(1)),
+                               (padded_p[0], padded_p[1].reshape(1)))
+    result["max_abs_err"] = max(result["max_abs_err"],
+                                result_pad["max_abs_err"])
+    valid_seg_words = int(((seg_bits.long() + 31) // 32).sum())
+    head = valid_seg_words * 4 + seg_bits.numel() * 4 + 8
+    spec = ("stream_concat", "jpegtpu_torch/csrc/concat.cu",
+            "jpegtpu/entropy/pallas_concat.py:337",
+            lambda: concat.stream_concat(segs, seg_bits, out_words, pad_ones),
+            lambda: concat.apply_tail_padding(*concat.stream_concat_plain(
+                segs, seg_bits, out_words), pad_ones),
+            head + (int(padded[1]) + 31) // 32 * 4, valid_seg_words * 2,
+            {"bound_ms_whole_buffer": (head + out_words * 4)
+             / HBM_BYTES_PER_S * 1e3})
+    return result, spec
+
+
+def k5_check_and_spec(name: str, wy, by, wc, bc, nmch: int, nmcw: int):
+    """K5 against its plain version on a path's 4:2:0 block streams ->
+    (result, timing spec), its bound the blocks' valid words and bit
+    counts in, the [6 * cap, nmcu] frame and the MCUs' bit counts out."""
+    result = equal_streams(name, merge.merge_mcu(wy, by, wc, bc, nmch, nmcw,
+                                                 "420"),
+                           merge.merge_mcu_plain(wy, by, wc, bc, nmch, nmcw,
+                                                 "420"))
+    nb, nmcu = by.numel() + bc.numel(), nmch * nmcw
+    valid = int(((by.long() + 31) // 32).sum() + ((bc.long() + 31) // 32)
+                .sum())
+    spec = ("merge_mcu", "jpegtpu_torch/csrc/merge.cu",
+            "jpegtpu/entropy/pallas_pack.py:867",
+            lambda: merge.merge_mcu(wy, by, wc, bc, nmch, nmcw, "420"),
+            lambda: merge.merge_mcu_plain(wy, by, wc, bc, nmch, nmcw, "420"),
+            valid * 4 + nb * 4 + 6 * wy.shape[0] * nmcu * 4 + nmcu * 4,
+            valid * 2)
+    return result, spec
+
+
 def wrapper_launches(say) -> None:
-    """One call each of K12's, K11's, K10's and K7's wrappers in one
-    torch.profiler session (the run's only one): the device kernels each
-    launched, and their device microseconds, from key_averages(). K12 runs
-    on 190,512 seeded streams of 8 words at interval 504 (the 3024 x 4032
-    gray restart grid), K11 on 64 images of the gray batch's 64 row
-    segments of 576 words, K10 on 4,320 seeded segments of 1,152 words
-    into the 8K gray stream's 4,148,736 words, K7 on 4,096 blocks of
-    tests/kernel_edge_cases.py's fused elements. Fails if the profiler
-    sees device events and they are not two K12 launches and one each of
-    the others; says so if it sees none."""
+    """One call each of K12's, K11's, K10's, K9's, K7's and K5's wrappers
+    in one torch.profiler session (the run's only one): the device kernels
+    each launched, and their device microseconds, from key_averages().
+    K12 runs on 190,512 seeded streams of 8 words at interval 504 (the
+    3024 x 4032 gray restart grid), K11 on 64 images of the gray batch's
+    64 row segments of 576 words, K10 on 4,320 seeded segments of 1,152
+    words into the 8K gray stream's 4,148,736 words, K9 with the tail
+    padding on 1,512 seeded segments of 1,152 words into the 3024 x 4032
+    gray stream's 1,525,632 words, K7 on 4,096 blocks of
+    tests/kernel_edge_cases.py's fused elements, K5 on seeded block
+    streams of the 3024 x 4032 4:2:0 grid. Fails if the profiler sees
+    device events and they are not two K12 launches and one each of the
+    others; says so if it sees none."""
     from torch.profiler import ProfilerActivity, profile
     words, bits = seeded_streams(8, (H // 8) * (W // 8), 5)
     sw, sb = seeded_streams(576, 64 * 64, 6, np.arange(0, 4000))
@@ -334,13 +402,23 @@ def wrapper_launches(say) -> None:
     ew, eb = k7_elements(4096, seed=8)
     ew = torch.from_numpy(ew.view(np.int32)).cuda()
     eb = torch.from_numpy(eb).cuda()
+    nb = (H // 8) * (W // 8)
+    gw, gb = seeded_streams(1152, nb // 128, 9, np.arange(0, 1152 * 4))
+    gsegs = gw.T.contiguous()
+    nmch, nmcw = H // 16, W // 16
+    wy, by = seeded_streams(8, 4 * nmch * nmcw, 10)
+    wc, bc = seeded_streams(8, 2 * nmch * nmcw, 11)
     calls = {"stitch_segments": lambda: stitch.stitch_segments(words, bits,
                                                                W // 8),
              "stream_concat_rows": lambda: concat.stream_concat_rows(
                  segs, sb, 64, 64 * 64 * 8),
              "stream_concat_chunked": lambda: concat.stream_concat_chunked(
                  csegs, cb, concat.stream_words(BIG_H * BIG_W // 64, 8)),
-             "pack_blocks": lambda: pack.pack_blocks(ew, eb, 8)}
+             "stream_concat": lambda: concat.stream_concat(
+                 gsegs, gb, concat.stream_words(nb, 8), True),
+             "pack_blocks": lambda: pack.pack_blocks(ew, eb, 8),
+             "merge_mcu": lambda: merge.merge_mcu(wy, by, wc, bc, nmch, nmcw,
+                                                  "420")}
     for fn in calls.values():  # built and loaded before the session
         fn()
     torch.cuda.synchronize()
@@ -363,7 +441,9 @@ def wrapper_launches(say) -> None:
              "stream_concat_rows": ("stream_concat_rows_kernel",
                                     "rows_scan_kernel"),
              "stream_concat_chunked": ("stream_concat_chunked_kernel",),
-             "pack_blocks": ("pack_blocks_kernel",)}
+             "stream_concat": ("stream_concat_kernel",),
+             "pack_blocks": ("pack_blocks_kernel",),
+             "merge_mcu": ("merge_mcu_kernel",)}
     mine = {k: w for k in seen for w, tags in owner.items()
             if any(t in k for t in tags)}
     counts = {w: sum(seen[k][0] for k in seen if mine.get(k) == w)
@@ -373,20 +453,26 @@ def wrapper_launches(say) -> None:
         kernels={k: {"count": c, "device_us": us}
                  for k, (c, us) in seen.items()})
     check(counts == {"stitch_segments": 2, "stream_concat_rows": 1,
-                     "stream_concat_chunked": 1, "pack_blocks": 1}
+                     "stream_concat_chunked": 1, "stream_concat": 1,
+                     "pack_blocks": 1, "merge_mcu": 1}
           and other == 0,
           f"launches per wrapper call: {counts}, other events {other}")
 
 
 def kernel_edge_phases(dev, say) -> None:
-    """K1-K4, K7 and K10 against their plain versions, where every level
-    and word must be equal (max_abs_err 0): K7 on
+    """K1-K5, K7, K9 and K10 against their plain versions, where every
+    level and word must be equal (max_abs_err 0): K7 on
     tests/kernel_edge_cases.py's fused elements (96-bit elements at every
     residue, exact word ends and cap overflow at caps 1, 8 and 53, nb 1,
     31, 33 and 1000, 64 and 130 elements a block), the overflow flag too;
-    K10 on its segments (empty and sub-word segments, totals on a word
-    boundary, partial last words, one-segment streams) with the scan in
-    shared memory and in global scratch; K4 on its
+    K10 and K9 on their segments (empty and sub-word segments, totals on
+    a word and on a byte boundary, partial last words, one-segment
+    streams, K9 also 30,000 segments) with the scan in shared memory and
+    in global scratch, with no tail padding, a pad of 0s and one of 1s
+    (against the plain version, then apply_tail_padding); K5 on its edge
+    MCUs (empty, full and overflowed blocks, blocks of a few bits sharing
+    a word) at 4:2:0, 4:2:2 and 4:4:4, caps 1, 8, 16, 17 and 53 (past 16
+    it copies a block's later words in its walk); K4 on its
     adversarial blocks (nb 1, 31, 33 and 1000, the blocks past the tables
     among them; Annex-K and the blocks' optimal tables; caps 1, 8, 53); K1,
     K2 (both luma kinds) and K3 (4:2:0, 4:2:2, 4:4:4) on grids of 0/255,
@@ -424,18 +510,35 @@ def kernel_edge_phases(dev, say) -> None:
         if scan == "global":  # the second launch, forced by a small limit
             concat._smem_optin = lambda device: 256
         try:
-            for i, case in enumerate(K10_CASES):
-                sg, sb, out_words = k10_case(i)
-                sg = torch.from_numpy(sg.view(np.int32)).to(dev)
-                sb = torch.from_numpy(sb).to(dev)
-                got = concat.stream_concat_chunked(sg, sb, out_words)
-                want = concat.stream_concat_chunked_plain(sg, sb, out_words,
-                                                          concat.PLAIN_TILE)
-                diff(f"K10 edges {case} {scan} scan",
-                     (got[0], got[1].reshape(1)),
-                     (want[0], want[1].reshape(1)))
+            for kernel, cases, case_of in (
+                    ("K10", K10_CASES, k10_case), ("K9", K9_CASES, k9_case)):
+                for i, case in enumerate(cases):
+                    sg, sb, out_words = case_of(i)
+                    sg = torch.from_numpy(sg.view(np.int32)).to(dev)
+                    sb = torch.from_numpy(sb).to(dev)
+                    want0 = (concat.stream_concat_chunked_plain(
+                        sg, sb, out_words, concat.PLAIN_TILE)
+                        if kernel == "K10" else
+                        concat.stream_concat_plain(sg, sb, out_words))
+                    join = (concat.stream_concat_chunked if kernel == "K10"
+                            else concat.stream_concat)
+                    for pad in (None, False, True):
+                        got = join(sg, sb, out_words, pad)
+                        want = (want0 if pad is None else
+                                concat.apply_tail_padding(want0[0].clone(),
+                                                          want0[1], pad))
+                        diff(f"{kernel} edges {case} {scan} scan pad {pad}",
+                             (got[0], got[1].reshape(1)),
+                             (want[0], want[1].reshape(1)))
         finally:
             concat._smem_optin = smem_optin
+    for ss in ("420", "422", "444"):
+        for cap in (1, 8, 16, 17, MAX_WORDS_PER_BLOCK):
+            streams = [torch.from_numpy(a.view(np.int32)).to(dev)
+                       for a in k5_streams(9, 31, ss, cap, seed=cap)]
+            diff(f"K5 edges {ss} cap {cap}",
+                 merge.merge_mcu(*streams, 9, 31, ss),
+                 merge.merge_mcu_plain(*streams, 9, 31, ss))
 
     annex_k = tables.encoder_state(EncodeConfig(), dev).huff
     for nb in (1, 31, 33, 1000):
@@ -586,20 +689,15 @@ def color_phases(dev, say) -> list:
           "K4: color main-path image overflowed cap 8")
 
     mw, mb = merge.merge_mcu(wy, by, wc, bc, nmch, nmcw, "420")
-    results["merge_mcu"] = equal_streams(
-        "K5", (mw, mb),
-        merge.merge_mcu_plain(wy, by, wc, bc, nmch, nmcw, "420"))
+    results["merge_mcu"], k5_spec = k5_check_and_spec(
+        "K5", wy, by, wc, bc, nmch, nmcw)
     segs, seg_bits = concat.merge_rows(mw, mb, nmch, nmcw)
     results["merge_rows"] = equal_streams(
         "K8 (MCU streams)", (segs, seg_bits),
         concat.merge_rows_plain(mw, mb, nmch, nmcw))
     out_words = concat.stream_words(nmcu, mw.shape[0])
-    stream, total = concat.stream_concat(segs, seg_bits, out_words)
-    stream_p, total_p = concat.stream_concat_plain(segs, seg_bits, out_words)
-    check(int(total) == int(total_p), "K9 (MCU streams): totals differ")
-    results["stream_concat"] = equal_streams(
-        "K9 (MCU streams)", (stream, total.reshape(1)),
-        (stream_p, total_p.reshape(1)))
+    results["stream_concat"], k9_spec = k9_check_and_spec(
+        "K9 (MCU streams)", segs, seg_bits, out_words, cfg.pad_ones)
     say("color_kernels_vs_plain", shape=[H, W, 3], subsampling="420",
         **results)
 
@@ -677,10 +775,7 @@ def color_phases(dev, say) -> list:
 
     # --- 10. color kernel timings and bounds -----------------------------
     nb = ny + nc
-    valid_block_words = int(((torch.cat([by, bc]).long() + 31) // 32).sum())
     valid_mcu_words = int(((mb.long() + 31) // 32).sum())
-    valid_seg_words = int(((seg_bits.long() + 31) // 32).sum())
-    stream_bytes = (int(total) + 31) // 32 * 4
     nseg, seg_words = segs.shape
     tab = 3 * 64 * 4  # quant + both bases
     specs = [
@@ -705,24 +800,14 @@ def color_phases(dev, say) -> list:
                                            cap)),
          64 * nb * 4 + nb * 4 + 2 * tables.HUFF_SIZE * 4 + cap * nb * 4
          + nb * 4, 64 * nb),
-        ("merge_mcu", "jpegtpu_torch/csrc/merge.cu",
-         "jpegtpu/entropy/pallas_pack.py:867",
-         lambda: merge.merge_mcu(wy, by, wc, bc, nmch, nmcw, "420"),
-         lambda: merge.merge_mcu_plain(wy, by, wc, bc, nmch, nmcw, "420"),
-         valid_block_words * 4 + nb * 4 + mw.shape[0] * nmcu * 4 + nmcu * 4,
-         valid_block_words * 2),
+        k5_spec,
         ("merge_rows", "jpegtpu_torch/csrc/concat.cu",
          "jpegtpu/entropy/pallas_concat.py:240",
          lambda: concat.merge_rows(mw, mb, nmch, nmcw),
          lambda: concat.merge_rows_plain(mw, mb, nmch, nmcw),
          valid_mcu_words * 4 + nmcu * 4 + nseg * seg_words * 4 + nseg * 4,
          valid_mcu_words * 2),
-        ("stream_concat", "jpegtpu_torch/csrc/concat.cu",
-         "jpegtpu/entropy/pallas_concat.py:337",
-         lambda: concat.stream_concat(segs, seg_bits, out_words),
-         lambda: concat.stream_concat_plain(segs, seg_bits, out_words),
-         valid_seg_words * 4 + nseg * 12 + stream_bytes,
-         valid_seg_words * 2),
+        k9_spec,
     ]
     kernels = time_kernels(specs, launches, results, "color", [H, W, 3], say)
     for name, fn in (
@@ -805,8 +890,8 @@ def two_pass_stage_breakdown(img, cfg, reps: int = 5) -> dict:
         t = mark("host_table_build_and_h2d", t)
         words, bits = pack.encode_blocks(lv, dcd, huff, cap)
         t = mark("K4_pack_runtime_tables", t)
-        stream, total = concat.concat_stream(words, bits, nbh, nbw)
-        stream, total = concat.apply_tail_padding(stream, total, cfg.pad_ones)
+        stream, total = concat.concat_stream(words, bits, nbh, nbw,
+                                             pad_ones=cfg.pad_ones)
         t = mark("K8_K9_concat_and_tail_pad", t)
         ov, total_bits = torch.stack(
             [(bits > cap * 32).any().to(torch.int64), total]).tolist()
@@ -1246,6 +1331,14 @@ def batch_phases(dev, say) -> list:
               f"batch {kind}: the batch overflowed cap 8")
         results, ws, (segs, seg_bits), k11_args = k8_k11(
             words, bits, n, nbh, nbw, f"batch {kind} cap 8")
+        k5_spec = None
+        if color:  # K5 on the stack's block streams
+            st = tables.encoder_state(cfg, dev)
+            results["merge_mcu"], k5_spec = k5_check_and_spec(
+                "K5 batch", *pack.encode_blocks(levels[0], dcd[0], st.huff,
+                                                cap),
+                *pack.encode_blocks(levels[1], dcd[1], st.huff_chroma, cap),
+                n * nbh, nbw)
         # K11 with the pad left 0, and on a 2-image batch
         per = k11_args[2]
         k11_edge = {}
@@ -1376,9 +1469,11 @@ def batch_phases(dev, say) -> list:
              valid_seg_words * 4 + nseg * 4 + slab_bytes + n * 8,
              valid_seg_words * 2),
         ]
+        if k5_spec:
+            specs_t.append(k5_spec)
         entries += time_kernels(specs_t, launches, results, f"batch_{kind}",
                                 shape, say)
-        del x, words, bits, segs, seg_bits, k11_args, files2
+        del x, words, bits, segs, seg_bits, k11_args, files2, k5_spec
         torch.cuda.empty_cache()
 
     # --- 21. reduced size: geometries, the ladder, leaving shared tables
@@ -1571,22 +1666,34 @@ def large_frame_phases(dev, say) -> list:
         nbytes = (valid_seg_words * 4 + segs.shape[0] * 4
                   + (k10_total + 31) // 32 * 4 + 8)
         whole = valid_seg_words * 4 + segs.shape[0] * 4 + out_words * 4 + 8
+        # as the path calls it: with the tail padding
         spec = ("stream_concat_chunked", "jpegtpu_torch/csrc/concat.cu",
                 "jpegtpu/entropy/pallas_concat.py:762",
                 lambda: concat.stream_concat_chunked(segs, seg_bits,
-                                                     out_words),
-                lambda: concat.stream_concat_chunked_plain(
-                    segs, seg_bits, out_words, tile),
+                                                     out_words, cfg.pad_ones),
+                lambda: concat.apply_tail_padding(
+                    *concat.stream_concat_chunked_plain(
+                        segs, seg_bits, out_words, tile), cfg.pad_ones),
                 nbytes, valid_seg_words * 2,
                 {"bound_ms_whole_buffer": whole / HBM_BYTES_PER_S * 1e3})
-        entries += time_kernels([spec], launches,
-                                {"stream_concat_chunked": result},
-                                f"8k_{kind}", list(img.shape), say)
+        specs = [spec]
+        results = {"stream_concat_chunked": result}
+        if color:
+            nmch, nmcw = BIG_H // 16, BIG_W // 16
+            dy, dc = color_pipeline.color_dc_differences(*lv, nmch, nmcw,
+                                                         "420")
+            k5_in = (pack.encode_blocks(lv[0], dy, state.huff, cap)
+                     + pack.encode_blocks(lv[1], dc, state.huff_chroma, cap))
+            results["merge_mcu"], k5_spec = k5_check_and_spec(
+                "K5 8K", *k5_in, nmch, nmcw)
+            specs.append(k5_spec)
+        entries += time_kernels(specs, launches, results, f"8k_{kind}",
+                                list(img.shape), say)
         # K9 and K10 on the same segments, in turns
-        turns = [("K9", lambda: concat.stream_concat(segs, seg_bits,
-                                                     out_words)),
+        turns = [("K9", lambda: concat.stream_concat(
+                     segs, seg_bits, out_words, cfg.pad_ones)),
                  ("K10", lambda: concat.stream_concat_chunked(
-                     segs, seg_bits, out_words))]
+                     segs, seg_bits, out_words, cfg.pad_ones))]
         times = {}
         for name, fn in turns + turns[::-1]:
             times.setdefault(name, []).append(time_ms(fn))
@@ -1594,7 +1701,7 @@ def large_frame_phases(dev, say) -> list:
             k9_ms=times["K9"], k10_ms=times["K10"],
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
             bound_ms_whole_buffer=whole / HBM_BYTES_PER_S * 1e3)
-        del x, lv, words, bits, segs, seg_bits
+        del x, lv, words, bits, segs, seg_bits, specs, results
         torch.cuda.empty_cache()
 
     # --- 25. below 8K: a 4:2:0 ladder whose upper rungs are chunked ------
@@ -1940,13 +2047,15 @@ def main() -> int:
     check(min(occupancy["transform_kernel"].values()) > 0
           and occupancy["encode_blocks_kernel"] > 0
           and occupancy["pack_blocks_kernel"] > 0
-          and min(occupancy["stream_concat_chunked_kernel"].values()) > 0,
+          and min(occupancy["stream_concat_chunked_kernel"].values()) > 0
+          and min(occupancy["merge_mcu_kernel"].values()) > 0
+          and occupancy["stream_concat_kernel"] > 0,
           f"occupancy query failed: {occupancy}")
 
-    # --- 1b. device launches of one K12, K11, K10 and K7 wrapper call ----
+    # --- 1b. device launches of one K12, K11, K10, K9, K7, K5 call -------
     wrapper_launches(say)
 
-    # --- 1c. K1-K4, K7, K10 against their plain versions, edge cases ----
+    # --- 1c. K1-K5, K7, K9, K10 against their plain versions, edges -----
     kernel_edge_phases(dev, say)
 
     # --- 2. each kernel against its plain version, main-path shapes ----
@@ -1983,12 +2092,8 @@ def main() -> int:
         np.abs(u32(segs) - u32(segs_p)).max())}
 
     out_words = concat.stream_words(nb, cap)
-    stream, total = concat.stream_concat(segs, seg_bits, out_words)
-    stream_p, total_p = concat.stream_concat_plain(segs, seg_bits, out_words)
-    check(torch.equal(stream, stream_p) and int(total) == int(total_p),
-          "K9: stream differs from plain")
-    results["stream_concat"] = {"max_abs_err": int(
-        np.abs(u32(stream) - u32(stream_p)).max())}
+    results["stream_concat"], k9_spec = k9_check_and_spec(
+        "K9", segs, seg_bits, out_words, cfg.pad_ones)
     say("kernels_vs_plain", shape=[H, W], **{k: v for k, v in results.items()})
 
     # --- 3. end to end through the entry point ---------------------------
@@ -2052,8 +2157,6 @@ def main() -> int:
     # --- 5. timings and bounds -------------------------------------------
     seg_words = segs.shape[1]
     valid_block_words = int(((bits.long() + 31) // 32).sum())
-    valid_seg_words = int(((seg_bits.long() + 31) // 32).sum())
-    stream_bytes = (int(total) + 31) // 32 * 4
     nseg = segs.shape[0]
     kernel_specs = [
         ("transform", "jpegtpu_torch/csrc/transform.cu",
@@ -2074,12 +2177,7 @@ def main() -> int:
          lambda: concat.merge_rows_plain(words, bits, nbh, nbw),
          valid_block_words * 4 + nb * 4 + nseg * seg_words * 4 + nseg * 4,
          valid_block_words * 2),
-        ("stream_concat", "jpegtpu_torch/csrc/concat.cu",
-         "jpegtpu/entropy/pallas_concat.py:337",
-         lambda: concat.stream_concat(segs, seg_bits, out_words),
-         lambda: concat.stream_concat_plain(segs, seg_bits, out_words),
-         valid_seg_words * 4 + nseg * 12 + stream_bytes,
-         valid_seg_words * 2),
+        k9_spec,
     ]
     kernels = time_kernels(kernel_specs, launches, results, "gray", [H, W],
                            say)

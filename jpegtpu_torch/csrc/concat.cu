@@ -4,9 +4,11 @@
 // Kernel A (merge_rows) replaces jpegtpu/entropy/pallas_concat.py:
 // merge_sublanes_pallas (_merge_kernel / _merge_kernel_skew, every ws).
 // Kernel B (stream_concat) replaces pallas_concat.py: stream_concat_pallas
-// (_stream_kernel). Kernel D (stream_concat_chunked) replaces
-// pallas_concat.py: stream_concat_chunked (_stream_chunked_kernel) and the
-// OR-combine of its chunks in concat_raw_chunked. Kernel C
+// (_stream_kernel) and, when asked, the tail padding after it
+// (treepack._apply_tail_padding). Kernel D (stream_concat_chunked)
+// replaces pallas_concat.py: stream_concat_chunked (_stream_chunked_kernel)
+// and the OR-combine of its chunks in concat_raw_chunked, with the same
+// tail padding when asked. Kernel C
 // (stream_concat_rows) replaces pallas_concat.py: _stream_concat_rows
 // (_stream_rows_kernel, via concat_segments_pallas) and the tail padding
 // after it (treepack.apply_tail_padding_segments).
@@ -22,7 +24,7 @@
 // Bound: bytes, every kernel (each stream word is read once and written
 // once per kernel; ~7 MB at 12 MPix, cap 8, ~2 us each at 3.35 TB/s), so
 // the design keeps every global access coalesced and does the bit-granular
-// work in shared memory or with atomics:
+// work in shared memory or in registers:
 // - A: one thread block of max(ws, 32) threads holds max(ws, 32) / ws
 //   segments. A shared-memory Hillis-Steele scan of the bit counts,
 //   masked at segment edges; each thread funnel-shifts its block's words by
@@ -33,32 +35,40 @@
 //   (the color scan's per-MCU streams of E * cap words reach it) the launch
 //   opts in to the device's larger limit first, and a block past that
 //   limit is refused (jt_merge_rows_max_cap says where it lies for a ws).
-// - B: one thread block per segment; each thread builds one output word
-//   from two neighbouring segment words (funnel shift) and plain-stores it
-//   when all its 32 bits are this segment's, atomicOr's it into the zeroed
-//   output when it shares the word with a neighbouring segment (the first
-//   and last word). The scan's wrapper runs B where jpegtpu's stream
-//   buffer is VMEM-resident (its concat_mode), D everywhere else.
-// - D: one launch writes every stream word once with plain stores, and
-//   the total: no zero-fill, no prefix sums or atomics around it. The
-//   TPU's chunks are worst-case-sized VMEM blocks that an XLA epilogue
-//   ORs together; they have no counterpart here. A grid of as many
-//   thread blocks of 1024 as the SMs hold (one each; its shared memory is
-//   the scan: 8 bytes a segment, 35 KB for the 8K frame's 4,320) each
-//   scans every segment's bit count into shared memory (16-byte loads;
-//   int64 inclusive ends, the total the last), takes an equal share of
-//   the words that hold bits and builds each 4-word group of it from the
-//   segment that covers its first bit (binary search; five loads and
-//   funnel shifts when one segment holds all 128 bits, else C's
-//   word-by-word walk across segment ends, empty segments and segments
-//   shorter than a word), and stores an equal share of the zeros past the
-//   total with 16-byte stores. At 8K the zeros are 83% / 89% of the
-//   16.6 MB (gray) / 24.9 MB (4:2:0) stream, which the design before
-//   zeroed in a launch of its own and then ORed the bits into. A stream of more
-//   segments than shared memory holds takes C's second launch, which
-//   writes the scan to global scratch first.
+// - B and D: one launch writes every stream word once with plain stores
+//   (16 bytes where aligned), the tail padding and the total: no
+//   zero-fill, no prefix sums, atomics or padding ops around it. B runs
+//   where jpegtpu's stream buffer is VMEM-resident (its concat_mode) and
+//   on every staged entropy scan, D everywhere else; the two share one
+//   body (join_stream) and differ in their launch shape. Each thread
+//   block scans every segment's bit count into shared memory (16-byte
+//   loads; int64 inclusive ends, the total the last), takes an equal
+//   share of the words that hold bits or the pad and builds each 4-word
+//   group of it from the segment that covers its first bit (binary
+//   search; five loads and funnel shifts when one segment holds all 128
+//   bits, else C's word-by-word walk across segment ends, empty segments
+//   and segments shorter than a word, which also sets the pad's 1s from
+//   the total to the byte), and stores an equal share of the zeros past
+//   them with 16-byte stores. Block 0 writes the total, rounded up to the
+//   byte when the stream is padded. The zeros are most of the stream (5
+//   of the 6.1 MB of a 3024 x 4032 gray scan, 83% / 89% of the 8K
+//   streams), and the design before B placed each segment with a thread
+//   block of its own into a buffer zeroed by a launch of its own, ORed its
+//   edge words in with atomics, after a cumsum and a subtraction, and
+//   left the pad to some twenty elementwise launches.
+//   B's streams are small (1,512 segments of a 3024 x 4032 gray scan,
+//   378 of the 4:2:0 MCU stream), so the scan each block repeats is
+//   cheap and B takes one thread block of 512 an SM (kK9Threads), D one of
+//   1024 (tools/torch_kernel_ab.py's sweep).
+// - D (K10): B's body at 8K, one thread block of 1024 an SM (its scan: 8
+//   bytes a segment, 35 KB for the 8K frame's 4,320). The TPU's chunks
+//   are worst-case-sized VMEM blocks that an XLA epilogue ORs together;
+//   they have no counterpart here. At 8K the zeros are 83% / 89% of the
+//   16.6 MB (gray) / 24.9 MB (4:2:0) stream.
 //   tools/k10_warp_per_segment.cu places a segment a warp instead
 //   (PERF.md compares the two).
+// - B and D: a stream of more segments than shared memory holds takes
+//   C's second launch, which writes the scan to global scratch first.
 // - C: every slab word is written once, by a plain coalesced store (16
 //   bytes where the slab is aligned): no zero-fill, no global atomics, no
 //   prefix sums outside the launch. The slabs are 134-201 MB at the
@@ -99,6 +109,9 @@ constexpr int kLanes = 128;
 constexpr int kMinThreads = 32;
 constexpr int kStreamThreads = 256;
 constexpr int kChunkThreads = 1024;  // K10: one thread block an SM
+// K9: one thread block an SM (tools/torch_kernel_ab.py's sweep of 128-1024
+// threads at 1-12 blocks an SM: the fastest or within 3% on every stream)
+constexpr int kK9Threads = 512;
 
 __host__ __device__ inline int merge_threads(int ws) {
   return ws < kMinThreads ? kMinThreads : ws;
@@ -151,48 +164,6 @@ merge_rows_kernel(const unsigned* __restrict__ words,
   if (l == ws - 1 && s < nseg) seg_bits[s] = scan[t];
 }
 
-// Word i of a segment (seg_words words, MSB first) placed at bit residue
-// r in [0, 31]: the funnel shift of its words i - 1 and i.
-__device__ inline unsigned shifted_word(const unsigned* __restrict__ src,
-                                        int seg_words, long long i, int r) {
-  const unsigned cur = i < seg_words ? src[i] : 0u;
-  if (!r) return cur;
-  const unsigned prev = (i > 0 && i <= seg_words) ? src[i - 1] : 0u;
-  return (cur >> r) | (prev << (32 - r));
-}
-
-// Place one segment of sb bits (seg_words words, MSB first) at bit `off`
-// of a zeroed stream of out_words words.
-__device__ inline void place_segment(const unsigned* __restrict__ src,
-                                     int seg_words, long long off,
-                                     long long sb, unsigned* __restrict__ out,
-                                     long long out_words) {
-  if (sb <= 0) return;
-  const long long first = off >> 5;
-  const long long n = ((off + sb - 1) >> 5) - first + 1;
-  const int r = (int)(off & 31);
-  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-    const unsigned v = shifted_word(src, seg_words, i, r);
-    const long long d = first + i;
-    if (d >= out_words) break;
-    if (d * 32 >= off && d * 32 + 32 <= off + sb) {
-      out[d] = v;
-    } else {
-      atomicOr(&out[d], v);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kStreamThreads)
-stream_concat_kernel(const unsigned* __restrict__ segs,
-                     const int* __restrict__ seg_bits,
-                     const long long* __restrict__ offs, int seg_words,
-                     unsigned* __restrict__ out, long long out_words) {
-  const int s = blockIdx.x;
-  place_segment(segs + (size_t)s * seg_words, seg_words, offs[s],
-                seg_bits[s], out, out_words);
-}
-
 // Word boundaries of share i of n words cut into `parts` shares of whole
 // 4-word groups.
 __device__ __forceinline__ long long share_start(long long n, long long i,
@@ -218,19 +189,18 @@ __device__ inline void load_counts(const int* __restrict__ bits, int nseg,
   }
 }
 
-// K10. Every block scans all nseg bit counts (in shared memory, or reads
-// the scan from inc_global) and writes its share of the stream's words:
-// first of those that hold bits, then of the zeros past the total.
+// B and D. Every block scans all nseg bit counts (in shared memory, or
+// reads the scan from inc_global) and writes its share of the stream's
+// words: first of those that hold bits or the pad, then of the zeros past
+// them. pad < 0: the total as it is, no pad; 0: the total rounded up to
+// the byte, the pad bits 0; 1: the same, the pad bits 1 (T.81 F.1.2.3).
 template <bool kScanInSmem>
-__global__ void __launch_bounds__(kChunkThreads)
-stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
-                             const int* __restrict__ seg_bits,
-                             const long long* __restrict__ inc_global,
-                             int nseg, int seg_words,
-                             unsigned* __restrict__ out, long long out_words,
-                             long long* __restrict__ total_out) {
-  extern __shared__ long long inc_smem[];
-  __shared__ long long warp_tot[32];
+__device__ __forceinline__ void join_stream(
+    const unsigned* __restrict__ segs, const int* __restrict__ seg_bits,
+    const long long* __restrict__ inc_global, int nseg, int seg_words,
+    int pad, unsigned* __restrict__ out, long long out_words,
+    long long* __restrict__ total_out, long long* inc_smem,
+    long long* warp_tot) {
   const long long* inc = inc_global;
   if (kScanInSmem) {
     load_counts(seg_bits, nseg, inc_smem);
@@ -238,8 +208,10 @@ stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
     inc = inc_smem;
   }
   const long long total = inc[nseg - 1];
-  if (blockIdx.x == 0 && threadIdx.x == 0) *total_out = total;
-  const long long valid = min((total + 31) >> 5, out_words);
+  const long long padded = pad < 0 ? total : (total + 7) & ~7LL;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *total_out = padded;
+  // the pad shares the word of bit `total`, so valid words end with it
+  const long long valid = min((padded + 31) >> 5, out_words);
   const long long lo = share_start(valid, blockIdx.x, gridDim.x);
   const long long hi = share_start(valid, blockIdx.x + 1, gridDim.x);
   for (long long g = jt::first_group(lo, jt::line_phase(out)) +
@@ -249,7 +221,7 @@ stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
     unsigned v[4] = {0u, 0u, 0u, 0u};
     int s = jt::upper_bound(inc, nseg, 32 * d0);
     const long long off = s ? inc[s - 1] : 0;
-    if (d1 - d0 == 4 && 32 * d0 + 128 <= inc[s]) {
+    if (d1 - d0 == 4 && s < nseg && 32 * d0 + 128 <= inc[s]) {
       jt::segment_words4(v, segs + (size_t)s * seg_words, seg_words,
                          32 * d0 - off);
     } else {
@@ -257,7 +229,7 @@ stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
       for (int w = 0; w < 4; ++w) {
         if (d0 + w < d1) {
           v[w] = jt::rows_word(d0 + w, s, inc, nseg, segs, seg_words,
-                               total, 0);
+                               padded, pad > 0);
         }
       }
     }
@@ -266,6 +238,36 @@ stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
   const long long nz = out_words - valid;
   jt::zero_words(out, valid + share_start(nz, blockIdx.x, gridDim.x),
                  valid + share_start(nz, blockIdx.x + 1, gridDim.x));
+}
+
+// K9: join_stream in blocks of kK9Threads (the bound's second argument
+// keeps ptxas from spilling to reach more blocks an SM than K9 runs).
+template <bool kScanInSmem>
+__global__ void __launch_bounds__(kK9Threads, 1)
+stream_concat_kernel(const unsigned* __restrict__ segs,
+                     const int* __restrict__ seg_bits,
+                     const long long* __restrict__ inc_global, int nseg,
+                     int seg_words, int pad, unsigned* __restrict__ out,
+                     long long out_words, long long* __restrict__ total_out) {
+  extern __shared__ long long inc_smem[];
+  __shared__ long long warp_tot[32];
+  join_stream<kScanInSmem>(segs, seg_bits, inc_global, nseg, seg_words, pad,
+                           out, out_words, total_out, inc_smem, warp_tot);
+}
+
+// K10: join_stream in blocks of 1024, one an SM.
+template <bool kScanInSmem>
+__global__ void __launch_bounds__(kChunkThreads)
+stream_concat_chunked_kernel(const unsigned* __restrict__ segs,
+                             const int* __restrict__ seg_bits,
+                             const long long* __restrict__ inc_global,
+                             int nseg, int seg_words, int pad,
+                             unsigned* __restrict__ out, long long out_words,
+                             long long* __restrict__ total_out) {
+  extern __shared__ long long inc_smem[];
+  __shared__ long long warp_tot[32];
+  join_stream<kScanInSmem>(segs, seg_bits, inc_global, nseg, seg_words, pad,
+                           out, out_words, total_out, inc_smem, warp_tot);
 }
 
 // One block per (image, tile of tile_words slab words), image-major. The
@@ -389,17 +391,6 @@ extern "C" int jt_merge_rows(const unsigned* words, const int* bits, int nb,
   return (int)cudaGetLastError();
 }
 
-extern "C" int jt_stream_concat(const unsigned* segs, const int* seg_bits,
-                                const long long* offs, int nseg,
-                                int seg_words, unsigned* out,
-                                long long out_words, cudaStream_t stream) {
-  if (nseg > 0) {
-    stream_concat_kernel<<<nseg, kStreamThreads, 0, stream>>>(
-        segs, seg_bits, offs, seg_words, out, out_words);
-  }
-  return (int)cudaGetLastError();
-}
-
 // The current device's opt-in shared memory per block, in bytes, or -1 if
 // the device cannot be queried.
 extern "C" int jt_smem_optin() {
@@ -412,20 +403,23 @@ extern "C" int jt_smem_optin() {
   return optin;
 }
 
-using ChunkedKernel = void (*)(const unsigned*, const int*,
-                               const long long*, int, int, unsigned*,
-                               long long, long long*);
+using JoinKernel = void (*)(const unsigned*, const int*, const long long*,
+                            int, int, int, unsigned*, long long, long long*);
 
-// K10 with its scan in shared memory (nseg int64) or in global scratch.
-static ChunkedKernel chunked_kernel(bool scratch) {
-  return scratch ? stream_concat_chunked_kernel<false>
-                 : stream_concat_chunked_kernel<true>;
+// K9 (chunked: K10) with its scan in shared memory (nseg int64) or in
+// global scratch.
+static JoinKernel join_kernel(bool chunked, bool scratch) {
+  if (chunked) {
+    return scratch ? stream_concat_chunked_kernel<false>
+                   : stream_concat_chunked_kernel<true>;
+  }
+  return scratch ? stream_concat_kernel<false> : stream_concat_kernel<true>;
 }
 
-// Thread blocks of K10 one SM holds for nseg segments (scratch: the scan
-// in global memory), or -1 on an error; launches nothing.
-extern "C" int jt_stream_concat_chunked_per_sm(int nseg, int scratch) {
-  const ChunkedKernel kernel = chunked_kernel(scratch != 0);
+// Thread blocks of the join one SM holds for nseg segments (scratch: the
+// scan in global memory), or -1 on an error; launches nothing.
+static int join_per_sm(bool chunked, int nseg, int scratch) {
+  const JoinKernel kernel = join_kernel(chunked, scratch != 0);
   const size_t smem = scratch ? 0 : (size_t)nseg * sizeof(long long);
   int n = 0;
   if ((smem > 48 * 1024 &&
@@ -433,7 +427,8 @@ extern "C" int jt_stream_concat_chunked_per_sm(int nseg, int scratch) {
                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                             (int)smem) != cudaSuccess) ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, kernel, kChunkThreads, smem) != cudaSuccess) {
+          &n, kernel, chunked ? kChunkThreads : kK9Threads, smem) !=
+          cudaSuccess) {
     return -1;
   }
   return n;
@@ -442,15 +437,12 @@ extern "C" int jt_stream_concat_chunked_per_sm(int nseg, int scratch) {
 // One launch of `blocks` thread blocks when the scan fits shared memory;
 // where it does not (the wrapper then passes inc_scratch, [nseg] int64),
 // rows_scan_kernel writes it there first.
-extern "C" int jt_stream_concat_chunked(const unsigned* segs,
-                                        const int* seg_bits,
-                                        long long* inc_scratch, int nseg,
-                                        int seg_words, int blocks,
-                                        unsigned* out, long long out_words,
-                                        long long* total,
-                                        cudaStream_t stream) {
+static int join(bool chunked, const unsigned* segs, const int* seg_bits,
+                long long* inc_scratch, int nseg, int seg_words, int blocks,
+                int pad, unsigned* out, long long out_words, long long* total,
+                cudaStream_t stream) {
+  const JoinKernel kernel = join_kernel(chunked, inc_scratch != nullptr);
   if (nseg <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
-  const ChunkedKernel kernel = chunked_kernel(inc_scratch != nullptr);
   const size_t smem = inc_scratch ? 0 : (size_t)nseg * sizeof(long long);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -461,9 +453,38 @@ extern "C" int jt_stream_concat_chunked(const unsigned* segs,
     rows_scan_kernel<<<1, kStreamThreads, 0, stream>>>(seg_bits, nseg,
                                                        inc_scratch);
   }
-  kernel<<<blocks, kChunkThreads, smem, stream>>>(
-      segs, seg_bits, inc_scratch, nseg, seg_words, out, out_words, total);
+  kernel<<<blocks, chunked ? kChunkThreads : kK9Threads, smem, stream>>>(
+      segs, seg_bits, inc_scratch, nseg, seg_words, pad, out, out_words,
+      total);
   return (int)cudaGetLastError();
+}
+
+extern "C" int jt_stream_concat_per_sm(int nseg, int scratch) {
+  return join_per_sm(false, nseg, scratch);
+}
+
+extern "C" int jt_stream_concat(const unsigned* segs, const int* seg_bits,
+                                long long* inc_scratch, int nseg,
+                                int seg_words, int blocks, int pad,
+                                unsigned* out, long long out_words,
+                                long long* total, cudaStream_t stream) {
+  return join(false, segs, seg_bits, inc_scratch, nseg, seg_words, blocks,
+              pad, out, out_words, total, stream);
+}
+
+extern "C" int jt_stream_concat_chunked_per_sm(int nseg, int scratch) {
+  return join_per_sm(true, nseg, scratch);
+}
+
+extern "C" int jt_stream_concat_chunked(const unsigned* segs,
+                                        const int* seg_bits,
+                                        long long* inc_scratch, int nseg,
+                                        int seg_words, int blocks, int pad,
+                                        unsigned* out, long long out_words,
+                                        long long* total,
+                                        cudaStream_t stream) {
+  return join(true, segs, seg_bits, inc_scratch, nseg, seg_words, blocks,
+              pad, out, out_words, total, stream);
 }
 
 // One launch: blocks of tile_words slab words, each image's scan in shared

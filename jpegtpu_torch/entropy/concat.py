@@ -16,15 +16,18 @@ ws * (cap + 1) words, as jpegtpu's row segments are (cap + 1) * 128 words
 at ws = 128. Words travel as int32 bit patterns (see entropy.pack).
 
 A single scan's segments become one stream by K9 or K10, split as
-jpegtpu splits its twins: where jpegtpu's stream buffer fits its VMEM
-budget (`concat_mode` "pallas-resident") K9 places every segment on its
-own (one thread block per segment, global atomics at its two edge
-words, into a zeroed output); everywhere else K10 builds every output
-word once from the segments covering it, in one launch that scans the
-bit counts itself and stores the zeros past the total. The TPU's K10
-cuts the stream into worst-case-sized VMEM chunks that an XLA epilogue
-ORs together; those have no counterpart on the card. Both write the same
-stream.
+jpegtpu splits its twins: K9 where jpegtpu's stream buffer fits its VMEM
+budget (`concat_mode` "pallas-resident") and on every staged entropy
+scan, K10 everywhere else. Both are one launch of one body
+(csrc/concat.cu join_stream) that scans the bit counts itself, builds
+every output word once from the segments covering it, stores the zeros
+past the total and, when asked (`pad_ones` True or False), pads the last
+byte and returns the total rounded up to it: no zero-fill, cumsum or
+padding ops around it. They differ in their launch shape: K9's streams
+are small, so it runs one thread block of 512 an SM, K10 one of 1024
+(tools/torch_kernel_ab.py's sweep). The TPU's K10 cuts the stream into
+worst-case-sized VMEM chunks that an XLA epilogue ORs together; those
+have no counterpart on the card. Both write the same stream.
 
 A batch stacks its images vertically, so image i owns a run of whole
 block rows and so a run of segments; K11 lays each image's segments back
@@ -125,29 +128,102 @@ def merge_rows_plain(words: torch.Tensor, bits: torch.Tensor, nbh: int,
     return to_int32(segs), b.sum(dim=1).to(torch.int32)
 
 
-def stream_concat(segs: torch.Tensor, seg_bits: torch.Tensor,
-                  out_words: int):
-    """K9: segments [S, SW] int32 + bit counts [S] -> (stream
-    [out_words] int32, total bits, a 0-dim int64 tensor). Segment s
-    starts at the exclusive cumulative sum of the bit counts before it.
+# The stream words each of K9's thread blocks (one of 512 threads an SM,
+# csrc/concat.cu kK9Threads) takes at least.
+K9_MIN_WORDS = 2048
 
-    On CUDA tensors this launches csrc/concat.cu (stream_concat) into a
-    zeroed output; on CPU tensors it runs `stream_concat_plain`."""
-    if segs.device.type == "cpu":
-        return stream_concat_plain(segs, seg_bits, out_words)
+
+def _pad_code(pad_ones: bool | None) -> int:
+    """The kernels' pad argument: -1 no tail padding, 0 pad bits 0, 1 pad
+    bits 1."""
+    return -1 if pad_ones is None else int(bool(pad_ones))
+
+
+def _check_join(segs: torch.Tensor, seg_bits: torch.Tensor) -> None:
+    if segs.dim() != 2 or seg_bits.shape != (segs.shape[0],) \
+            or segs.shape[0] < 1:
+        raise ValueError(f"segs {tuple(segs.shape)} / seg_bits "
+                         f"{tuple(seg_bits.shape)} do not match")
+
+
+def _join(kernel: str, segs: torch.Tensor, seg_bits: torch.Tensor,
+          out_words: int, pad_ones: bool | None, grid) -> tuple:
+    """One launch of K9 or K10 (`kernel`): allocates the stream and the
+    total, and the scan's global scratch where the segments' scan does
+    not fit shared memory (then two launches). grid(scratch) -> the
+    kernel's thread blocks."""
     _build.require_cuda(segs, "segs", torch.int32)
     _build.require_cuda(seg_bits, "seg_bits", torch.int32)
-    inc = torch.cumsum(seg_bits, 0, dtype=torch.int64)
-    offs = inc - seg_bits
-    out = torch.zeros((out_words,), dtype=torch.int32, device=segs.device)
-    P, I = ctypes.c_void_p, ctypes.c_int
+    dev = segs.device
+    nseg, sw = segs.shape
+    out = torch.empty((out_words,), dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = (None if rows_scan_fits(nseg, _smem_optin(dev))
+               else torch.empty((nseg,), dtype=torch.int64, device=dev))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     _build.launch(
-        "concat", "stream_concat", (P, P, P, I, I, P, ctypes.c_longlong),
-        segs.data_ptr(), seg_bits.data_ptr(), offs.data_ptr(),
-        segs.shape[0], segs.shape[1], out.data_ptr(), out_words,
-        device=segs.device,
+        "concat", kernel, (P, P, P, I, I, I, I, P, L, P),
+        segs.data_ptr(), seg_bits.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), nseg, sw,
+        grid(scratch is not None), _pad_code(pad_ones), out.data_ptr(),
+        out_words, total.data_ptr(), device=dev,
     )
-    return out, inc[-1]
+    return out, total
+
+
+def stream_concat_blocks(out_words: int, most: int,
+                         min_words: int = K9_MIN_WORDS) -> int:
+    """K9's thread blocks: `most` (one an SM), but no more than one per
+    min_words stream words, since each block scans every bit count before
+    it writes."""
+    return max(1, min(most, -(-out_words // min_words)))
+
+
+def stream_concat(segs: torch.Tensor, seg_bits: torch.Tensor,
+                  out_words: int, pad_ones: bool | None = None):
+    """K9: segments [S, SW] int32 + bit counts [S] -> (stream
+    [out_words] int32, total bits, a 0-dim int64 tensor). Segment s
+    starts at the exclusive cumulative sum of the bit counts before it; a
+    segment holds at most SW * 32 bits, as K8's do. With pad_ones True
+    or False the last partial byte is padded with 1s (T.81) or left 0s
+    and the total is rounded up to the byte, as apply_tail_padding does;
+    None leaves both as they are.
+
+    On CUDA tensors this is one launch of csrc/concat.cu (stream_concat)
+    that writes every stream word once, zeros past the total and the pad
+    included, and the total: each of its thread blocks (one of 512 an SM,
+    stream_concat_blocks) scans the bit counts in shared memory and
+    builds its share of the words. Past `rows_scan_fits` (some 29,000
+    segments) a second launch writes the scan to global scratch first. On
+    CPU tensors it runs `stream_concat_plain`, then apply_tail_padding."""
+    _check_join(segs, seg_bits)
+    if segs.device.type == "cpu":
+        out, total = stream_concat_plain(segs, seg_bits, out_words)
+        return _padded(out, total, pad_ones)
+    return _join(
+        "stream_concat", segs, seg_bits, out_words, pad_ones,
+        lambda scratch: stream_concat_blocks(
+            out_words, _k9_blocks(segs.device, segs.shape[0], scratch)))
+
+
+def _padded(stream: torch.Tensor, total: torch.Tensor,
+            pad_ones: bool | None):
+    if pad_ones is None:
+        return stream, total
+    return apply_tail_padding(stream, total, pad_ones)
+
+
+@functools.lru_cache(maxsize=None)
+def _k9_blocks(device: torch.device, nseg: int, scratch: bool) -> int:
+    """K9's most thread blocks: one an SM."""
+    with torch.cuda.device(device):
+        per_sm = _build.query("concat", "stream_concat_per_sm",
+                              (ctypes.c_int, ctypes.c_int), nseg,
+                              int(scratch))
+    if per_sm < 1:
+        raise RuntimeError(f"stream_concat: no thread block for {nseg} "
+                           f"segments fits an SM ({per_sm})")
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_concat_plain(segs: torch.Tensor, seg_bits: torch.Tensor,
@@ -166,48 +242,31 @@ def chunked_blocks(out_words: int, resident: int) -> int:
     """K10's thread blocks (of 1024 threads): as many as the card holds at
     once (`resident`), but no more than one per 4096 stream words, since
     each block scans every bit count before it writes."""
-    return max(1, min(resident, -(-out_words // 4096)))
+    return stream_concat_blocks(out_words, resident, 4096)
 
 
 def stream_concat_chunked(segs: torch.Tensor, seg_bits: torch.Tensor,
-                          out_words: int):
+                          out_words: int, pad_ones: bool | None = None):
     """K10: the contract of stream_concat (segments [S, SW] int32 from K8
     + bit counts [S] -> (stream [out_words] int32, total bits, a 0-dim
-    int64 tensor)), for streams past jpegtpu's resident budget. A segment
-    holds at most SW * 32 bits, as K8's do.
+    int64 tensor), the tail padding when pad_ones is True or False), for
+    streams past jpegtpu's resident budget.
 
     On CUDA tensors this is one launch of csrc/concat.cu
-    (stream_concat_chunked) that writes every stream word once, zeros past
-    the total included, and the total: each thread block scans the bit
-    counts in shared memory and builds its share of the words (those that
-    hold bits, then the zeros past the total). Past `rows_scan_fits`
+    (stream_concat_chunked), K9's body in thread blocks of 1024, as many
+    as the card holds at once (chunked_blocks); past `rows_scan_fits`
     (some 29,000 segments) a second launch writes the scan to global
-    scratch first. On CPU tensors it runs `stream_concat_chunked_plain` in
-    chunks of PLAIN_TILE segments."""
-    nseg, sw = segs.shape
-    if seg_bits.shape != (nseg,) or nseg < 1:
-        raise ValueError(f"segs {tuple(segs.shape)} / seg_bits "
-                         f"{tuple(seg_bits.shape)} do not match")
+    scratch first. On CPU tensors it runs `stream_concat_chunked_plain`
+    in chunks of PLAIN_TILE segments, then apply_tail_padding."""
+    _check_join(segs, seg_bits)
     if segs.device.type == "cpu":
-        return stream_concat_chunked_plain(segs, seg_bits, out_words,
-                                           PLAIN_TILE)
-    _build.require_cuda(segs, "segs", torch.int32)
-    _build.require_cuda(seg_bits, "seg_bits", torch.int32)
-    dev = segs.device
-    out = torch.empty((out_words,), dtype=torch.int32, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = (None if rows_scan_fits(nseg, _smem_optin(dev))
-               else torch.empty((nseg,), dtype=torch.int64, device=dev))
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    _build.launch(
-        "concat", "stream_concat_chunked", (P, P, P, I, I, I, P, L, P),
-        segs.data_ptr(), seg_bits.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), nseg, sw,
-        chunked_blocks(out_words, _chunked_resident(dev, nseg,
-                                                    scratch is not None)),
-        out.data_ptr(), out_words, total.data_ptr(), device=dev,
-    )
-    return out, total
+        out, total = stream_concat_chunked_plain(segs, seg_bits, out_words,
+                                                 PLAIN_TILE)
+        return _padded(out, total, pad_ones)
+    return _join(
+        "stream_concat_chunked", segs, seg_bits, out_words, pad_ones,
+        lambda scratch: chunked_blocks(out_words, _chunked_resident(
+            segs.device, segs.shape[0], scratch)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -414,19 +473,21 @@ def stream_words(nb: int, cap: int) -> int:
 
 
 def concat_stream(words: torch.Tensor, bits: torch.Tensor, nbh: int,
-                  nbw: int, rung_words: int | None = None):
+                  nbw: int, rung_words: int | None = None,
+                  pad_ones: bool | None = None):
     """Per-block streams [cap, nb] + bits [nb] of an nbh x nbw grid in scan
-    order -> (scan stream int32, total bits 0-dim int64): K8, then K9
-    where the grid's concat_mode is "pallas-resident", else K10. The mode
-    is jpegtpu's at rung_words words per stream, the capacity ladder's
-    rung (None: cap), which is more than cap where the kernels run at
+    order -> (scan stream int32, total bits 0-dim int64, both with the
+    tail padding when pad_ones is True or False): K8, then K9 where the
+    grid's concat_mode is "pallas-resident", else K10. The mode is
+    jpegtpu's at rung_words words per stream, the capacity ladder's rung
+    (None: cap), which is more than cap where the kernels run at
     pipeline.kernel_cap."""
     cap, nb = words.shape
     segs, seg_bits = merge_rows(words, bits, nbh, nbw)
     resident = concat_mode(nbh, nbw, rung_words or cap,
                            column_groups(nbw)) == "pallas-resident"
     join = stream_concat if resident else stream_concat_chunked
-    return join(segs, seg_bits, stream_words(nb, cap))
+    return join(segs, seg_bits, stream_words(nb, cap), pad_ones)
 
 
 def concat_segments(words: torch.Tensor, bits: torch.Tensor, nbh: int,

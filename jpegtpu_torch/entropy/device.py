@@ -22,8 +22,7 @@ import torch
 
 from .. import tables
 from ..ops.blocks import sampling_factors
-from .concat import (apply_tail_padding, merge_rows, stream_concat,
-                     stream_words)
+from .concat import merge_rows, stream_concat, stream_words
 from .pack import (MAX_WORDS_PER_BLOCK, _amplitude, deposit, encode_blocks,
                    pack_blocks, to_int32)
 from .treepack import _fuse_subslots
@@ -338,7 +337,7 @@ def encode_scan_device(zz, table_sel=0, dc_diff=None, seg_len: int = 0,
 
     packer="tree", the fused branch (an int table_sel, or an array with
     dc_diff, unless fused=False): K4 once per table class, back to scan
-    order, K8, K9, tail padding.
+    order, K8, K9 with the tail padding.
     The staged branch (fused=False, or an array without dc_diff):
     symbolize_elements64, treepack._fuse_subslots into 3-word elements,
     K7, then the same concat. Both run at every cap: jpegtpu's fused
@@ -384,8 +383,8 @@ def encode_scan_device(zz, table_sel=0, dc_diff=None, seg_len: int = 0,
             words_t, bits_t = _fuse_subslots(values, lengths, 3)
             words, bits, overflow = pack_blocks(words_t, bits_t, cap)
         segs, seg_bits = merge_rows(words, bits, 1, nb)
-        stream, total = stream_concat(segs, seg_bits, stream_words(nb, rung))
-        stream, total = apply_tail_padding(stream, total, pad_ones)
+        stream, total = stream_concat(segs, seg_bits, stream_words(nb, rung),
+                                      pad_ones)
     else:
         sel = torch.from_numpy(table_sel).to(dev) if multi_table \
             else table_sel

@@ -15,7 +15,10 @@ K5 (merge_mcu) reads the block streams where K4 left them, in raster
 order. K6 (merge_streams) reads them slot-major, [E, cap, nmcu]: plane s
 holds every MCU's s-th block (slot_major_streams gathers them so), the
 layout of jpegtpu's non-raw color batch route. Both give the same MCU
-streams.
+streams. Both walk an MCU's streams in one thread through a funnel-shift
+accumulator; K5 first copies the first 16 words of each of its blocks
+into shared memory with asynchronous copies, all in flight together, and
+walks them from there (csrc/merge.cu).
 """
 from __future__ import annotations
 

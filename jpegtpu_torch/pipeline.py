@@ -9,10 +9,10 @@ shares.
 
 The main path at the default EncodeConfig runs four kernels on the card:
 K1 transform (ops.transform) -> DC differences -> K4 symbolize + pack
-(entropy.pack) -> K8 row merge + K9 stream concat (entropy.concat) ->
-tail padding. Frames whose stream buffer is past jpegtpu's resident
-budget (gray_concat_mode; the 7680 x 4320 frame at every rung) take
-K10's tiled concat in place of K9. The host reads (overflow, total
+(entropy.pack) -> K8 row merge + K9 stream concat with the tail
+padding (entropy.concat). Frames whose stream buffer is past jpegtpu's
+resident budget (gray_concat_mode; the 7680 x 4320 frame at every rung)
+take K10's tiled concat in place of K9. The host reads (overflow, total
 bits), then the valid word prefix, and stuffs it with the native
 runtime (with stuff="device" the card stuffs it, and the host reads the
 stuffed bytes). A block that overflows the per-block capacity retries
@@ -39,8 +39,7 @@ import torch
 from . import native, tables
 from .config import EncodeConfig
 from .entropy import host as entropy_host
-from .entropy.concat import (apply_tail_padding, column_groups,
-                             concat_mode, concat_stream)
+from .entropy.concat import column_groups, concat_mode, concat_stream
 from .entropy.device import (MAX_WORDS_PER_BLOCK, assemble_histograms,
                              dc_differences, stuff_bytes_device,
                              symbol_histograms)
@@ -230,13 +229,13 @@ def finish_scan(words: torch.Tensor, bits: torch.Tensor,
                 stuff_on_device: bool = False) -> bytes | None:
     """Streams [cap, nb] + bits [nb] of an nbh x nbw grid in scan order
     -> K8 + K9 (K10 past jpegtpu's resident budget at rung_words words
-    per stream) -> tail padding -> one readback of (any overflow, total
-    bits), then of the valid word prefix -> stuffed scan bytes; None if
+    per stream), which pad the tail too -> one readback of (any overflow,
+    total bits), then of the valid word prefix -> stuffed scan bytes; None if
     `overflow` holds anywhere (the caller retries at the next rung). With
     stuff_on_device the stream is stuffed on its device
     (stuff_bytes_device) and only the stuffed bytes are read back."""
-    stream, total = concat_stream(words, bits, nbh, nbw, rung_words)
-    stream, total = apply_tail_padding(stream, total, pad_ones)
+    stream, total = concat_stream(words, bits, nbh, nbw, rung_words,
+                                  pad_ones)
     if stuff_on_device:  # -> (stuffed bytes, their count)
         stream, total = stuff_bytes_device(stream, total)
     overflowed, count = torch.stack(

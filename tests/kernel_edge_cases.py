@@ -1,11 +1,12 @@
 """Adversarial inputs for K4 (jpegtpu_torch.entropy.pack.encode_blocks),
-the transforms K1-K3 (jpegtpu_torch.ops.transform), K7
-(entropy.pack.pack_blocks) and K10 (entropy.concat.stream_concat_chunked),
-made from a seed with numpy alone. tests/test_torch_kernel_edges.py holds
-the port's twins against jpegtpu on the K1-K4 ones, and the kernels
-against the twins on the card; tests/test_torch_k7_k10.py holds numpy
-models of K7's and K10's index arithmetic against their twins on the K7
-and K10 ones, and tests/test_torch_gpu.py the kernels; chip_smoke.py's
+the transforms K1-K3 (jpegtpu_torch.ops.transform), K5
+(entropy.merge.merge_mcu), K7 (entropy.pack.pack_blocks), K9 and K10
+(entropy.concat.stream_concat, stream_concat_chunked), made from a seed
+with numpy alone. tests/test_torch_kernel_edges.py holds the port's twins
+against jpegtpu on the K1-K4 ones, and the kernels against the twins on
+the card; tests/test_torch_k7_k10.py and tests/test_torch_k5_k9.py hold
+numpy models of K5's, K7's, K9's and K10's index arithmetic against their
+twins on theirs, and tests/test_torch_gpu.py the kernels; chip_smoke.py's
 kernel_edges phase runs the same kernel checks."""
 import numpy as np
 
@@ -225,3 +226,77 @@ def k10_case(i: int) -> tuple:
     kind, nseg, sw, extra = K10_CASES[i]
     segs, bits = k10_segments(kind, nseg, sw, seed=100 + i)
     return segs, bits, (int(bits.astype(np.int64).sum()) + 31) // 32 + extra
+
+
+# K9's streams: K10's, then segments of whole bytes (a total on a byte
+# boundary that is not a word boundary), and more segments than one
+# thread block's shared memory holds (some 29,000 on an H100: the scan
+# goes to global scratch)
+K9_CASES = K10_CASES + (
+    ("byte", 120, 3, 4),
+    ("short", 30000, 1, 3),
+)
+
+
+def k9_case(i: int) -> tuple:
+    """K9_CASES[i] made: (segs, seg_bits, out_words). The cases K10 shares
+    are made from K10's seeds."""
+    if i < len(K10_CASES):
+        return k10_case(i)
+    kind, nseg, sw, extra = K9_CASES[i]
+    rng = np.random.default_rng(200 + i)
+    if kind == "byte":
+        bits = 8 * rng.integers(0, 4 * sw + 1, nseg)
+        if bits.sum() % 32 == 0:
+            bits[-1] = 8 if bits[-1] != 8 else 16
+        segs = _msb_words(rng, bits, sw)
+    else:
+        segs, bits = k10_segments(kind, nseg, sw, seed=200 + i)
+    bits = bits.astype(np.int32)
+    return segs, bits, (int(bits.astype(np.int64).sum()) + 31) // 32 + extra
+
+
+# (fy, fx) of each subsampling K5 takes
+SAMPLING = {"420": (2, 2), "422": (1, 2), "444": (1, 1)}
+
+
+def k5_streams(nmch: int, nmcw: int, subsampling: str, cap: int,
+               seed: int) -> tuple:
+    """K4-like block streams of an nmch x nmcw MCU grid, as K5 takes them:
+    (words_y [cap, ny] uint32, bits_y [ny] int32, words_c [cap, 2 * nmcu]
+    uint32, bits_c [2 * nmcu] int32), luma in raster order over the luma
+    grid, Cb then Cr in MCU order, words zero past each block's bits (a
+    block past cap * 32 bits keeps cap full words, as K4 stores an
+    overflowed one). The edge MCUs first (E slots each): all empty; all
+    full; all past cap * 32 (clamped); slots of 1-7 bits, several in one
+    word; one bit in the last slot only; slots of 31, 32 and 33 bits;
+    slots of whole bytes; then slots drawn from 0, 1-31, 32 * k and k
+    bits, full and past cap * 32; cut to nmch * nmcw."""
+    fy, fx = SAMPLING[subsampling]
+    ky, e, top = fy * fx, fy * fx + 2, 32 * cap
+    nmcu = nmch * nmcw
+    rng = np.random.default_rng(seed)
+    rows = [[0] * e, [top] * e, [top + 9] * e, list(range(1, e + 1)),
+            [7, 1, 3, 0, 5, 2][:e], [0] * (e - 1) + [1], [31] * e,
+            [32] * e, [33] * e, [8 * (k + 1) for k in range(e)]]
+    pick = (lambda: 0, lambda: int(rng.integers(1, 32)),
+            lambda: 32 * int(rng.integers(1, cap + 1)),
+            lambda: int(rng.integers(0, top + 1)), lambda: top,
+            lambda: top + int(rng.integers(1, 64)))
+    while len(rows) < nmcu:
+        rows.append([pick[int(rng.integers(0, len(pick)))]()
+                     for _ in range(e)])
+    counts = np.array(rows[:nmcu], np.int64)  # [nmcu, E]
+    words = _msb_words(rng, np.minimum(counts, top), cap)  # [nmcu, E, cap]
+    m = np.arange(nmcu)
+    my, mx = m // nmcw, m % nmcw
+    bits_y = np.zeros(ky * nmcu, np.int64)
+    words_y = np.zeros((cap, ky * nmcu), np.uint32)
+    for s in range(ky):
+        blk = (fy * my + s // fx) * (fx * nmcw) + fx * mx + s % fx
+        bits_y[blk] = counts[:, s]
+        words_y[:, blk] = words[:, s].T
+    bits_c = np.concatenate([counts[:, ky], counts[:, ky + 1]])
+    words_c = np.concatenate([words[:, ky].T, words[:, ky + 1].T], axis=1)
+    return (words_y, bits_y.astype(np.int32),
+            np.ascontiguousarray(words_c), bits_c.astype(np.int32))

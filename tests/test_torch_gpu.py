@@ -19,7 +19,8 @@ from jpegtpu_torch.entropy.device import (dc_differences, symbol_histograms,
                                           y_dc_differences)
 from jpegtpu_torch.ops import transform
 
-from kernel_edge_cases import K10_CASES, K7_CAPS, k10_case, k7_elements
+from kernel_edge_cases import (K10_CASES, K7_CAPS, K9_CASES, k10_case,
+                               k5_streams, k7_elements, k9_case)
 from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.gpu
@@ -707,3 +708,63 @@ def test_configs_jpegtpu_reads_as_the_default(cuda, kind, kw):
         encode = (jpegtpu_torch.encode_color if color
                   else jpegtpu_torch.encode_grayscale)
         assert encode(images[0], cfg) == encode(images[0], base)
+
+
+@pytest.mark.parametrize("pad_ones", [None, False, True])
+@pytest.mark.parametrize("scan", ["shared", "global"])
+@pytest.mark.parametrize("case", range(len(K9_CASES)))
+def test_stream_concat_edges_match_plain(cuda, monkeypatch, case, scan,
+                                         pad_ones):
+    """K9 on tests/kernel_edge_cases.py's segments, with no pad, a pad of
+    0s and one of 1s, against its plain version and apply_tail_padding:
+    one launch (two with the scan in global scratch, forced by a smaller
+    limit or, at 30,000 segments, by the card's), K10 with the same pad
+    equal."""
+    segs, seg_bits, out_words = k9_case(case)
+    if scan == "global":
+        monkeypatch.setattr(concat, "_smem_optin", lambda dev: 256)
+    s = torch.from_numpy(segs.view(np.int32)).to(cuda)
+    b = torch.from_numpy(seg_bits).to(cuda)
+    before = _build.LAUNCHES["stream_concat"]
+    got, total = concat.stream_concat(s, b, out_words, pad_ones)
+    assert _build.LAUNCHES["stream_concat"] == before + 1
+    want, want_total = concat.stream_concat_plain(s, b, out_words)
+    if pad_ones is not None:
+        want, want_total = concat.apply_tail_padding(want, want_total,
+                                                     pad_ones)
+    assert total.dtype == torch.int64 and total.device.type == "cuda"
+    assert int(total) == int(want_total) and torch.equal(got, want)
+    k10, k10_total = concat.stream_concat_chunked(s, b, out_words, pad_ones)
+    assert int(k10_total) == int(want_total) and torch.equal(k10, want)
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 300])
+def test_stream_concat_grids_match_plain(cuda, monkeypatch, blocks):
+    """K9 on grids from one thread block to more than the stream has
+    groups, padded with 1s."""
+    segs, seg_bits, out_words = k9_case(0)
+    monkeypatch.setattr(concat, "stream_concat_blocks",
+                        lambda words, resident: blocks)
+    s = torch.from_numpy(segs.view(np.int32)).to(cuda)
+    b = torch.from_numpy(seg_bits).to(cuda)
+    got, total = concat.stream_concat(s, b, out_words, True)
+    want, want_total = concat.apply_tail_padding(
+        *concat.stream_concat_plain(s, b, out_words), True)
+    assert int(total) == int(want_total) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cap", [1, 8, 16, 17, 53])
+@pytest.mark.parametrize("ss", ["420", "422", "444"])
+def test_merge_mcu_edges_match_plain(cuda, ss, cap):
+    """K5 on tests/kernel_edge_cases.py's MCUs (empty, full and
+    overflowed slots, slots of a few bits sharing a word), at caps below,
+    at and past the 8 words a block it stages (past them it reads the
+    rest in its walk): one launch."""
+    wy, by, wc, bc = k5_streams(9, 31, ss, cap, seed=cap)
+    t = [torch.from_numpy(x.view(np.int32)).to(cuda)
+         for x in (wy, by, wc, bc)]
+    before = _build.LAUNCHES["merge_mcu"]
+    got = merge.merge_mcu(*t, 9, 31, ss)
+    assert _build.LAUNCHES["merge_mcu"] == before + 1
+    want = merge.merge_mcu_plain(*t, 9, 31, ss)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -1,9 +1,9 @@
-"""Time this tree's K1-K4, K7 and K10 (jpegtpu_torch/csrc/transform.cu,
-pack.cu and concat.cu) against another checkout's, on one CUDA card, in
-one process.
+"""Time this tree's K1-K5, K7, K9 and K10 (jpegtpu_torch/csrc/transform.cu,
+pack.cu, merge.cu and concat.cu) against another checkout's, on one CUDA
+card, in one process.
 
     python3 tools/torch_kernel_ab.py --parent DIR [--out FILE]
-        [--kernels k1-k4,k7,k10]
+        [--kernels k1-k4,k5,k7,k9,k10]
 
 DIR holds the other checkout (for example `git archive` of the parent
 commit, unpacked); its jpegtpu_torch is imported as jpegtpu_torch_parent
@@ -17,20 +17,33 @@ at Q50, and seeded noise at Q100, whose dense blocks reach the retry
 ladder's rungs) runs at caps 8, 16 and 53, beside a third K4,
 tools/k4_warp_per_block.cu (a warp per 8x8 block), built here and held
 to the same outputs (turns: other, this, warp, warp, this, other).
+K5 runs on the 4:2:0 block streams of 3024 x 4032, 7680 x 4320 and the
+batch stack at cap 8, and of 3024 x 4032 Q100 noise at caps 16 and 53,
+beside tools/k5_word_parallel.cu (a thread a group of output words) and
+tools/k5_staged.cu (8 words a block staged, the zeros stored while they
+arrive), both built here and held to the same outputs (turns: other,
+this, words, words, staged, staged, this, other), with the frame's
+stores alone and the word-parallel K5 over its threads an MCU.
 K7 runs on the staged path's fused elements of the 3024 x 4032 gray
 levels, Q50 and Q100 seeded noise, at caps 8, 16 and 53, beside
 tools/k7_staged.cu (its elements staged in shared memory, built here and
 held to the same outputs, in the same turns), with the compare-and-reduce
 that the parent's wrapper runs after its launch timed alone and K7 built
-at other numbers of elements a round trip. K10 runs on K8's segments of
-the 7680 x 4320 frame, gray and 4:2:0, and of the 3024 x 4032 4:2:0 Q100
-noise ladder's chunked rungs (16 and 53), beside
+at other numbers of elements a round trip. K9 runs on K8's segments of
+3024 x 4032 gray (and of its staged path's one row), 4:2:0, gray Q100
+noise at rung 16 and 4:2:0 Q100 noise at rung 8 (rungs jpegtpu still
+joins resident), with the tail padding against the parent's K9 followed
+by apply_tail_padding (the paths' join), and without it; then K9 built
+at 128-1024 threads a block over grids of 1-12 blocks an SM, beside the
+stream's zero-fill alone and K9 on segments with no bits. K10 runs on
+K8's segments of the 7680 x 4320 frame, gray and 4:2:0, and of the 3024
+x 4032 4:2:0 Q100 noise ladder's chunked rungs (16 and 53), beside
 tools/k10_warp_per_segment.cu (a warp per segment, built here and held
-to the same outputs, in the same turns as the warp K4), and at 8K over a
-sweep of its thread-block counts, with the stream's zero-fill alone and
-K10 on segments with no bits beside it. One JSON line per kernel and
-shape, with the card's name and power limit, and one with each K4's,
-K7's and K10's thread blocks an SM (the warp K4's at each cap).
+to the same outputs, in the same turns as the warp K4), and at 8K with
+and without its pad, over a sweep of its thread-block counts, with the
+stream's zero-fill alone and K10 on segments with no bits beside it. One
+JSON line per kernel and shape, with the card's name and power limit,
+and one with each K4's, K5's, K7's and K10's thread blocks an SM.
 """
 from __future__ import annotations
 
@@ -54,7 +67,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from jpegtpu_torch import (EncodeConfig, _build, color_pipeline,  # noqa: E402
                            pipeline, tables)
-from jpegtpu_torch.entropy import concat, device, pack  # noqa: E402
+from jpegtpu_torch.entropy import concat, device, merge, pack  # noqa: E402
 from jpegtpu_torch.entropy import treepack  # noqa: E402
 from jpegtpu_torch.entropy.device import (dc_differences,  # noqa: E402
                                           symbol_histograms)
@@ -73,7 +86,8 @@ def load_other(root: str):
     return (importlib.import_module("jpegtpu_torch_parent._build"),
             importlib.import_module("jpegtpu_torch_parent.ops.transform"),
             importlib.import_module("jpegtpu_torch_parent.entropy.pack"),
-            importlib.import_module("jpegtpu_torch_parent.entropy.concat"))
+            importlib.import_module("jpegtpu_torch_parent.entropy.concat"),
+            importlib.import_module("jpegtpu_torch_parent.entropy.merge"))
 
 
 CAPS = (8, 16, 53)
@@ -183,6 +197,97 @@ def load_staged_k7():
     return pack_staged, lib.jt_pack_blocks_staged_per_sm
 
 
+K5_STAGED_SRC = os.path.join(ROOT, "tools", "k5_staged.cu")
+K5_STAGED_SO = os.path.join(ROOT, "build", "tools", "libk5_staged.so")
+
+
+def load_staged_k5():
+    """tools/k5_staged.cu, built with the package's nvcc flags:
+    (merge(wy, by, wc, bc, nmch, nmcw) -> (words, bits) at 4:2:0: the
+    first 8 words a block staged, the zeros stored while they arrive; its
+    thread blocks an SM; zero(frame, vec4) -> frame: the frame's store
+    pattern alone; ptxas's lines)."""
+    os.makedirs(os.path.dirname(K5_STAGED_SO), exist_ok=True)
+    report = subprocess.run(_build._nvcc_command(K5_STAGED_SRC,
+                                                 K5_STAGED_SO),
+                            check=True, capture_output=True, text=True)
+    ptxas = cs.ptxas_lines(report.stdout + report.stderr)
+    lib = ctypes.CDLL(K5_STAGED_SO)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.jt_merge_mcu_staged.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P]
+    lib.jt_frame_zero.argtypes = [P, I, I, I, P]
+
+    def merge_staged(wy, by, wc, bc, nmch, nmcw):
+        cap, nmcu = wy.shape[0], nmch * nmcw
+        dev = wy.device
+        out = torch.empty((6 * cap, nmcu), dtype=torch.int32, device=dev)
+        bits = torch.empty((nmcu,), dtype=torch.int32, device=dev)
+        err = lib.jt_merge_mcu_staged(
+            wy.data_ptr(), by.data_ptr(), wc.data_ptr(), bc.data_ptr(), cap,
+            nmch, nmcw, 2, 2, out.data_ptr(), bits.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"merge_mcu_staged: cudaError {err}")
+        return out, bits
+
+    def zero(frame, vec4):
+        err = lib.jt_frame_zero(frame.data_ptr(), frame.shape[0],
+                                frame.shape[1], int(vec4),
+                                torch.cuda.current_stream(
+                                    frame.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"frame_zero: cudaError {err}")
+        return frame
+
+    return merge_staged, lib.jt_merge_mcu_staged_per_sm, zero, ptxas
+
+
+K5_WORDS_SRC = os.path.join(ROOT, "tools", "k5_word_parallel.cu")
+K5_WORDS_SO = os.path.join(ROOT, "build", "tools",
+                           "libk5_word_parallel.so")
+
+
+def k5_word_groups(nmcu: int, words: int, resident_threads: int) -> int:
+    """The word-parallel K5's threads an MCU, T: enough that the grid
+    fills the card's resident threads once, at most one a word."""
+    return max(1, min(words, round(resident_threads / max(nmcu, 1))))
+
+
+def load_word_parallel_k5():
+    """tools/k5_word_parallel.cu, built with the package's nvcc flags:
+    merge(wy, by, wc, bc, nmch, nmcw, groups=None) -> (words, bits) at
+    4:2:0 (groups None: k5_word_groups for this card)."""
+    deps = [K5_WORDS_SRC] + sorted(glob.glob(os.path.join(_build.CSRC,
+                                                          "*.cuh")))
+    _build.compile_if_stale(
+        K5_WORDS_SO, deps, lambda out: _build._nvcc_command(K5_WORDS_SRC,
+                                                            out))
+    lib = ctypes.CDLL(K5_WORDS_SO)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.jt_merge_mcu_words.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P,
+                                       P]
+    props = torch.cuda.get_device_properties(0)
+    resident = (props.multi_processor_count
+                * props.max_threads_per_multi_processor)
+
+    def merge_words(wy, by, wc, bc, nmch, nmcw, groups=None):
+        cap, nmcu = wy.shape[0], nmch * nmcw
+        if groups is None:
+            groups = k5_word_groups(nmcu, 6 * cap, resident)
+        dev = wy.device
+        out = torch.empty((6 * cap, nmcu), dtype=torch.int32, device=dev)
+        bits = torch.empty((nmcu,), dtype=torch.int32, device=dev)
+        err = lib.jt_merge_mcu_words(
+            wy.data_ptr(), by.data_ptr(), wc.data_ptr(), bc.data_ptr(), cap,
+            nmch, nmcw, 2, 2, groups, out.data_ptr(), bits.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"merge_mcu_words: cudaError {err}")
+        return out, bits
+
+    return merge_words
+
+
 def load_k7_group(group: int):
     """This tree's K7 built with kGroup = group from a copy of
     csrc/pack.cu under build/tools/: (pack(words_t, bits_t, cap) ->
@@ -229,11 +334,57 @@ def k10_blocks(segs, seg_bits, out_words, blocks):
     total = torch.empty((), dtype=torch.int64, device=segs.device)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     _build.launch(
-        "concat", "stream_concat_chunked", (P, P, P, I, I, I, P, L, P),
+        "concat", "stream_concat_chunked", (P, P, P, I, I, I, I, P, L, P),
         segs.data_ptr(), seg_bits.data_ptr(), None, segs.shape[0],
-        segs.shape[1], blocks, out.data_ptr(), out_words,
+        segs.shape[1], blocks, -1, out.data_ptr(), out_words,
         total.data_ptr(), device=segs.device)
     return out, total
+
+
+def load_k9_threads(threads_list):
+    """This tree's K9 built with kK9Threads = each of threads_list from
+    copies of csrc/concat.cu under build/tools/ (the nvcc runs in
+    parallel): {threads: (join(segs, seg_bits, out_words, blocks) ->
+    (stream, total) with the pad of 1s, per_sm(nseg))}."""
+    text = open(os.path.join(_build.CSRC, "concat.cu")).read()
+    text = text.replace('#include "bitjoin.cuh"',
+                        f'#include "{_build.CSRC}/bitjoin.cuh"')
+    procs = {}
+    for t in threads_list:
+        src = os.path.join(ROOT, "build", "tools", f"k9_threads{t}.cu")
+        so = os.path.join(ROOT, "build", "tools", f"libk9_threads{t}.so")
+        os.makedirs(os.path.dirname(src), exist_ok=True)
+        with open(src, "w") as f:
+            f.write(text.replace("constexpr int kK9Threads = 512;",
+                                 f"constexpr int kK9Threads = {t};"))
+        procs[t] = (so, subprocess.Popen(_build._nvcc_command(src, so),
+                                         stdout=subprocess.DEVNULL,
+                                         stderr=subprocess.PIPE))
+    built = {}
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for t, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"K9 at {t} threads: nvcc failed: {err}")
+        lib = ctypes.CDLL(so)
+        lib.jt_stream_concat.argtypes = [P, P, P, I, I, I, I, P, L, P, P]
+        lib.jt_stream_concat_per_sm.argtypes = [I, I]
+
+        def join(segs, seg_bits, out_words, blocks, lib=lib, t=t):
+            out = torch.empty((out_words,), dtype=torch.int32,
+                              device=segs.device)
+            total = torch.empty((), dtype=torch.int64, device=segs.device)
+            err = lib.jt_stream_concat(
+                segs.data_ptr(), seg_bits.data_ptr(), None, segs.shape[0],
+                segs.shape[1], blocks, 1, out.data_ptr(), out_words,
+                total.data_ptr(),
+                torch.cuda.current_stream(segs.device).cuda_stream)
+            if err:
+                raise RuntimeError(f"K9 at {t} threads: cudaError {err}")
+            return out, total
+
+        built[t] = (join, lib.jt_stream_concat_per_sm)
+    return built
 
 
 def equal(a, b) -> bool:
@@ -246,8 +397,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--kernels", default="k1-k4,k7,k10",
-                    help="comma-separated groups: k1-k4, k7, k10")
+    ap.add_argument("--kernels", default="k1-k4,k5,k7,k9,k10",
+                    help="comma-separated groups: k1-k4, k5, k7, k9, k10")
     args = ap.parse_args()
     groups = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -265,13 +416,17 @@ def main() -> int:
             out.write(line + "\n")
 
     t0 = time.perf_counter()
-    obuild, otransform, opack, oconcat = load_other(
+    obuild, otransform, opack, oconcat, omerge = load_other(
         os.path.abspath(args.parent))
     _build.build_all()
     obuild.build_all()
     warp_k4, warp_per_sm = load_warp_k4()
     warp_k10, warp_k10_per_sm = load_warp_k10()
     staged_k7, staged_k7_per_sm = load_staged_k7()
+    staged_k5, staged_k5_per_sm, frame_zero, k5_ptxas = load_staged_k5()
+    words_k5 = load_word_parallel_k5()
+    k9_builds = (load_k9_threads((128, 256, 512, 1024)) if "k9" in groups
+                 else {})
     say(phase="build", seconds=time.perf_counter() - t0)
     say(phase="blocks_per_sm", threads=128, caps=list(CAPS),
         encode_blocks=_build.query("pack", "encode_blocks_per_sm", ()),
@@ -281,7 +436,11 @@ def main() -> int:
         stream_concat_chunked={n: _build.query(
             "concat", "stream_concat_chunked_per_sm",
             (ctypes.c_int, ctypes.c_int), n, 0) for n in (1080, 4320)},
-        k10_warp_per_segment={n: warp_k10_per_sm(n) for n in (1080, 4320)})
+        k10_warp_per_segment={n: warp_k10_per_sm(n) for n in (1080, 4320)},
+        merge_mcu={c: _build.query("merge", "merge_mcu_per_sm",
+                                   (ctypes.c_int,), c) for c in CAPS},
+        merge_mcu_zeros_first=staged_k5_per_sm(),
+        merge_mcu_staged_ptxas=k5_ptxas)
     dev = torch.device("cuda")
 
     def ab(kernel, path, other, this):
@@ -425,6 +584,7 @@ def main() -> int:
         out_words = concat.stream_words(nbh * nbw, words.shape[0])
         path = "8k_420" if color else "8k_gray"
         k10(path, segs, seg_bits, out_words)
+        k10_pad(path, segs, seg_bits, out_words)
         resident = concat._chunked_resident(dev, int(segs.shape[0]), False)
         want = concat.stream_concat_chunked(segs, seg_bits, out_words)
         sweep = {}
@@ -464,6 +624,203 @@ def main() -> int:
             k10(f"420_q100_noise_cap{cap}", segs, seg_bits,
                 concat.stream_words(nbh * nbw, words.shape[0]))
 
+    def turns(kernel, path, other, this, **kv):
+        """other and this in turns (other, this, this, other), outputs
+        equal."""
+        same = equal(other(), this())
+        t = [cs.time_ms(f) for f in (other, this, this, other)]
+        say(kernel=kernel, path=path, equal=bool(same),
+            before_ms=[t[0], t[3]], after_ms=[t[1], t[2]], **kv)
+        if not same:
+            raise SystemExit(f"{kernel} {path}: outputs differ")
+
+    def k10_pad(path, segs, seg_bits, out_words):
+        """K10 with the pad flag: the parent's K10 (no pad) against this
+        tree's without and with the pad (the kernel alone: the pad bits
+        differ), and the parent's K10 + apply_tail_padding against this
+        K10 padding itself (the same stream)."""
+        def plain_join():
+            return oconcat.stream_concat_chunked(segs, seg_bits, out_words)
+
+        def padded_join():
+            return concat.stream_concat_chunked(segs, seg_bits, out_words,
+                                                True)
+        t = [cs.time_ms(f) for f in (plain_join, padded_join, padded_join,
+                                     plain_join)]
+        say(kernel="K10 kernel, pad flag", path=path,
+            parent_no_pad_ms=[t[0], t[3]], this_pad_ms=[t[1], t[2]])
+        turns("K10 + tail padding", path,
+              lambda: oconcat.apply_tail_padding(*plain_join(), True),
+              padded_join)
+
+    def k9(path, segs, seg_bits, out_words):
+        """K9 before / after: the parent's K9 then apply_tail_padding (the
+        path's join) against this tree's K9 with the pad; the two without
+        the pad; then this K9 over thread-block sizes and grids."""
+        turns("K9 + tail padding", path,
+              lambda: oconcat.apply_tail_padding(*oconcat.stream_concat(
+                  segs, seg_bits, out_words), True),
+              lambda: concat.stream_concat(segs, seg_bits, out_words, True),
+              segments=int(segs.shape[0]), segment_words=int(segs.shape[1]),
+              stream_words=out_words)
+        turns("K9", path,
+              lambda: oconcat.stream_concat(segs, seg_bits, out_words),
+              lambda: concat.stream_concat(segs, seg_bits, out_words))
+        want = concat.stream_concat(segs, seg_bits, out_words, True)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nseg = int(segs.shape[0])
+        sweep, resident = {}, {}
+        for threads, (join, per_sm) in k9_builds.items():
+            resident[threads] = per_sm(nseg, 0) * sms
+            grids = {b for b in (sms, 2 * sms, 4 * sms, 8 * sms,
+                                 resident[threads], -(-out_words // 1024),
+                                 -(-out_words // 2048),
+                                 -(-out_words // 4096),
+                                 -(-out_words // 8192))
+                     if b <= resident[threads]}
+            for blocks in sorted(grids):
+                if not equal(join(segs, seg_bits, out_words, blocks), want):
+                    raise SystemExit(f"K9 {threads} x {blocks}: outputs "
+                                     "differ")
+                sweep[f"{threads}x{blocks}"] = cs.time_ms(
+                    lambda j=join, b=blocks: j(segs, seg_bits, out_words, b))
+        say(kernel="K9 launch shapes", path=path, ms=sweep,
+            best=min(sweep, key=sweep.get),
+            shipped="512x" + str(concat.stream_concat_blocks(
+                out_words, concat._k9_blocks(dev, nseg, False))),
+            resident=resident)
+        say(kernel="K9 parts", path=path, zero_fill_ms=cs.time_ms(
+            lambda: torch.zeros((out_words,), dtype=torch.int32,
+                                device=dev)),
+            no_bits_ms=cs.time_ms(lambda: concat.stream_concat(
+                segs, torch.zeros_like(seg_bits), out_words, True)),
+            parent_tail_padding_ms=cs.time_ms(
+                lambda: oconcat.apply_tail_padding(want[0], want[1], True)))
+
+    def k9_all():
+        h, w = cs.H, cs.W
+        st = tables.encoder_state(EncodeConfig(), dev)
+        lv = transform.transform(
+            torch.from_numpy(cs.make_image(h, w)).to(dev), st, False)
+        words, bits = pack.encode_blocks(lv, dc_differences(lv[0]), st.huff,
+                                         8)
+        nbh, nbw = h // 8, w // 8
+        segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
+        k9("gray", segs, seg_bits, concat.stream_words(nbh * nbw, 8))
+        # the staged entropy path: one row of 190,512 blocks
+        segs, seg_bits = concat.merge_rows(words, bits, 1, nbh * nbw)
+        k9("gray_staged_one_row", segs, seg_bits,
+           concat.stream_words(nbh * nbw, 8))
+        # Q100 noise at rung 16, the last resident gray rung: its blocks
+        # fill their 16 words
+        assert pipeline.gray_concat_mode(h, w, 16) == "pallas-resident"
+        st = tables.encoder_state(EncodeConfig(quality=100), dev)
+        lv = transform.transform(torch.from_numpy(
+            np.random.default_rng(7).integers(0, 256, (h, w),
+                                              dtype=np.uint8)).to(dev),
+            st, False)
+        words, bits = pack.encode_blocks(lv, dc_differences(lv[0]), st.huff,
+                                         16)
+        segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
+        k9("gray_q100_noise_cap16", segs, seg_bits,
+           concat.stream_words(nbh * nbw, 16))
+        del lv, words, bits
+        for quality, tag in ((50, "420"), (100, "420_q100_noise_cap8")):
+            st = tables.encoder_state(EncodeConfig(
+                subsampling="420", quality=quality), dev)
+            img = (cs.make_color_image(h, w) if quality == 50 else
+                   np.random.default_rng(7).integers(0, 256, (h, w, 3),
+                                                     dtype=np.uint8))
+            rgb = torch.from_numpy(img).to(dev)
+            ly = transform.transform_rgb_y(rgb, st, False)
+            lc = transform.transform_rgb_chroma(rgb, st, False, "420")
+            nbh, nbw = h // 16, w // 16
+            dcd = color_pipeline.color_dc_differences(ly, lc, nbh, nbw, "420")
+            mw, mb, _ = color_pipeline.mcu_streams(ly, lc, dcd, st, nbh, nbw,
+                                                   "420", 8)
+            assert color_pipeline.color_concat_mode(h, w, "420", 8) == \
+                "pallas-resident"
+            segs, seg_bits = concat.merge_rows(mw, mb, nbh, nbw)
+            k9(tag, segs, seg_bits, concat.stream_words(nbh * nbw,
+                                                        mw.shape[0]))
+
+    def k5(path, wy, by, wc, bc, nmch, nmcw, sweep=True):
+        """K5 before / after beside the word-parallel and the zeros-first
+        designs (turns: other, this, words, words, zeros, zeros, this,
+        other), the frame's store pattern alone, and the word-parallel K5
+        over its threads an MCU."""
+        fns = {"other": lambda: omerge.merge_mcu(wy, by, wc, bc, nmch, nmcw,
+                                                 "420"),
+               "this": lambda: merge.merge_mcu(wy, by, wc, bc, nmch, nmcw,
+                                               "420"),
+               "word_parallel": lambda: words_k5(wy, by, wc, bc, nmch, nmcw),
+               "zeros_first": lambda: staged_k5(wy, by, wc, bc, nmch,
+                                                nmcw)}
+        want = fns["this"]()
+        same = all(equal(f(), want) for f in fns.values())
+        order = ("other", "this", "word_parallel", "word_parallel",
+                 "zeros_first", "zeros_first", "this", "other")
+        t = [cs.time_ms(fns[k]) for k in order]
+        say(kernel="K5", path=path, equal=bool(same), mcus=nmch * nmcw,
+            cap=int(wy.shape[0]), before_ms=[t[0], t[7]],
+            after_ms=[t[1], t[6]], word_parallel_ms=[t[2], t[3]],
+            zeros_first_ms=[t[4], t[5]])
+        if not same:
+            raise SystemExit(f"K5 {path}: outputs differ")
+        if not sweep:
+            return
+        frame = torch.empty_like(want[0])
+        say(kernel="K5 frame stores alone", path=path,
+            frame_bytes=frame.numel() * 4,
+            torch_zeros_ms=cs.time_ms(lambda: torch.zeros_like(frame)),
+            scalar_ms=cs.time_ms(lambda: frame_zero(frame, False)),
+            vec4_ms=(cs.time_ms(lambda: frame_zero(frame, True))
+                     if frame.shape[1] % 4 == 0 else None))
+        ms = {}
+        for groups in (1, 2, 3, 4, 6, 8, 12, 48):
+            if not equal(words_k5(wy, by, wc, bc, nmch, nmcw, groups), want):
+                raise SystemExit(f"K5 groups {groups}: outputs differ")
+            ms[groups] = cs.time_ms(
+                lambda g=groups: words_k5(wy, by, wc, bc, nmch, nmcw, g))
+        say(kernel="K5 word-parallel, threads an MCU", path=path, ms=ms,
+            best=min(ms, key=ms.get))
+
+    def k5_streams_of(rgb, nmch, nmcw, seg_mcus=0, quality=50, cap=8):
+        st = tables.encoder_state(EncodeConfig(subsampling="420",
+                                               quality=quality), dev)
+        ly = transform.transform_rgb_y(rgb, st, False)
+        lc = transform.transform_rgb_chroma(rgb, st, False, "420")
+        dy, dc = color_pipeline.color_dc_differences(ly, lc, nmch, nmcw,
+                                                     "420", seg_mcus)
+        wy, by = pack.encode_blocks(ly, dy, st.huff, cap)
+        wc, bc = pack.encode_blocks(lc, dc, st.huff_chroma, cap)
+        return wy, by, wc, bc
+
+    def k5_all():
+        for h, w, path in ((cs.H, cs.W, "420"), (cs.BIG_H, cs.BIG_W,
+                                                 "8k_420")):
+            rgb = torch.from_numpy(cs.make_color_image(h, w)).to(dev)
+            k5(path, *k5_streams_of(rgb, h // 16, w // 16), h // 16, w // 16)
+        n, bh, bw = cs.BATCH_N, cs.BATCH_H, cs.BATCH_W
+        x = cs.batch_images_on_card(n, bh, bw, True, seed=42)
+        streams = k5_streams_of(x.reshape(n * bh, bw, 3), n * bh // 16,
+                                bw // 16, (bh // 16) * (bw // 16))
+        del x
+        k5("batch_420", *streams, n * bh // 16, bw // 16)
+        del streams
+        # the Q100 noise ladder's rungs 16 and 53: blocks past 8 words
+        h, w = cs.H, cs.W
+        noise = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+        for cap in (16, 53):
+            k5(f"420_q100_noise_cap{cap}",
+               *k5_streams_of(noise, h // 16, w // 16, quality=100, cap=cap),
+               h // 16, w // 16, sweep=False)
+
+    if "k5" in groups:
+        k5_all()
+    if "k9" in groups:
+        k9_all()
     if "k7" in groups:
         h, w = cs.H, cs.W
         k7("gray", 50, torch.from_numpy(cs.make_image(h, w)).to(dev))
