@@ -28,19 +28,20 @@ Every source is built anew; the build line lists each kernel's registers,
 spills and shared memory, and the run fails if a kernel of transform.cu,
 pack.cu, merge.cu or concat.cu (K1-K11) spills. Right after the build,
 one torch.profiler session counts the device kernels of one K12, K11,
-K10, K9, K7 and K5 wrapper call (two, then one each), and the
-kernel_edges phase holds K1-K5, K7, K9 and K10 against their plain
+K10, K9, K8, K7 and K5 wrapper call (two, then one each), and the
+kernel_edges phase holds K1-K5 and K7-K10 against their plain
 versions, equal to the last level and word, on
 tests/kernel_edge_cases.py's adversarial blocks, ragged grids, fused
-elements, MCUs and segments (K9 and K10 with and without the tail
-padding) and on the main paths' images. K9 and K10 are timed as the
+elements, MCUs, rows (K8 at every segment width) and segments (K9 and
+K10 with and without the tail padding) and on the main paths' images. K9 and K10 are timed as the
 paths call them, with the tail padding inside.
 For each path
 it holds every kernel against its plain PyTorch version at the path's
 shapes (K12 also at restart_interval 1, with a ragged last segment, and
 on seeded streams at intervals 1, 2, 37 and n with both pads; K8 and K11
 also at the top rung, K11 also with the pad left 0, on a 2-image batch
-and on the K6 route, where it is timed too), encodes end to end through
+and on the K6 route, where it is timed too; K8 is timed at 8K and on
+the K6 route as well), encodes end to end through
 the entry point (launch counts reset just before and read just after),
 checks the bytes against the port's CPU path (a batch file also against
 its single-image encode), climbs the capacity ladder, and times each
@@ -78,9 +79,9 @@ from jpegtpu_torch.ops import transform
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from kernel_edge_cases import (K7_CAPS, K9_CASES, K10_CASES,  # noqa: E402
-                               k4_blocks, k5_streams, k7_elements, k9_case,
-                               k10_case, transform_image)
+from kernel_edge_cases import (K7_CAPS, K8_CASES, K9_CASES,  # noqa: E402
+                               K10_CASES, k4_blocks, k5_streams, k7_elements,
+                               k8_case, k9_case, k10_case, transform_image)
 
 H, W = 3024, 4032  # 12.19 MPix, the reference's image size
 LADDER_H, LADDER_W = 512, 512
@@ -99,6 +100,9 @@ NO_SPILL_SOURCES = ("transform", "pack", "merge", "concat")
 # K10's segment counts at 8K, cap 8: gray (4,320 row segments of 128
 # blocks) and 4:2:0 (1,080 of 128 MCUs)
 K10_8K_SEGMENTS = {"8k_gray": 4320, "8k_420": 1080}
+# K8's (segment width, words a block) on the paths: gray and 4:2:0 MCU
+# streams at ws 128, the batches' ws 64 / 32, the 4:2:0 top rung
+K8_WIDTH_CAPS = ((128, 8), (128, 48), (64, 8), (32, 48), (128, 318))
 # transform_kernel's kinds (csrc/transform.cu)
 TRANSFORM_KINDS = ("gray", "jfif_luma", "reference_luma", "chroma_420",
                    "chroma_422", "chroma_444")
@@ -124,11 +128,17 @@ def ptxas_lines(report: str) -> list:
 def blocks_per_sm() -> dict:
     """Thread blocks one SM holds of each transform kind (256 threads), of
     K4 and K7 (128 threads, at any cap), of K5 (128 threads, at caps 8,
-    16 and 53: its stage grows to 16 words a block), of K9 (512 threads,
-    the 3024 x 4032 gray scan's 1,512 segment counts in shared memory) and
-    of K10 (1024 threads, the 8K frame's segment counts): the CUDA
-    runtime's occupancy calculator on the built kernels."""
+    16 and 53: its stage grows to 16 words a block), of K8 (max(ws, 32)
+    threads, at K8_WIDTH_CAPS: its segment is in shared memory), of K9
+    (512 threads, the 3024 x 4032 gray scan's 1,512 segment counts in
+    shared memory) and of K10 (1024 threads, the 8K frame's segment
+    counts): the CUDA runtime's occupancy
+    calculator on the built kernels."""
     return {
+        "merge_rows_kernel": {
+            f"ws{ws}_cap{c}": _build.query(
+                "concat", "merge_rows_per_sm", (ctypes.c_int, ctypes.c_int),
+                ws, c) for ws, c in K8_WIDTH_CAPS},
         "merge_mcu_kernel": {
             cap: _build.query("merge", "merge_mcu_per_sm", (ctypes.c_int,),
                               cap) for cap in (8, 16, MAX_WORDS_PER_BLOCK)},
@@ -379,15 +389,16 @@ def k5_check_and_spec(name: str, wy, by, wc, bc, nmch: int, nmcw: int):
 
 
 def wrapper_launches(say) -> None:
-    """One call each of K12's, K11's, K10's, K9's, K7's and K5's wrappers
-    in one torch.profiler session (the run's only one): the device kernels
+    """One call each of K12's, K11's, K10's, K9's, K8's, K7's and K5's
+    wrappers in one torch.profiler session (the run's only one): the device kernels
     each launched, and their device microseconds, from key_averages().
     K12 runs on 190,512 seeded streams of 8 words at interval 504 (the
     3024 x 4032 gray restart grid), K11 on 64 images of the gray batch's
     64 row segments of 576 words, K10 on 4,320 seeded segments of 1,152
     words into the 8K gray stream's 4,148,736 words, K9 with the tail
     padding on 1,512 seeded segments of 1,152 words into the 3024 x 4032
-    gray stream's 1,525,632 words, K7 on 4,096 blocks of
+    gray stream's 1,525,632 words, K8 on the K12 streams as the 3024 x
+    4032 gray grid's row segments, K7 on 4,096 blocks of
     tests/kernel_edge_cases.py's fused elements, K5 on seeded block
     streams of the 3024 x 4032 4:2:0 grid. Fails if the profiler sees
     device events and they are not two K12 launches and one each of the
@@ -416,6 +427,8 @@ def wrapper_launches(say) -> None:
                  csegs, cb, concat.stream_words(BIG_H * BIG_W // 64, 8)),
              "stream_concat": lambda: concat.stream_concat(
                  gsegs, gb, concat.stream_words(nb, 8), True),
+             "merge_rows": lambda: concat.merge_rows(words, bits, H // 8,
+                                                     W // 8),
              "pack_blocks": lambda: pack.pack_blocks(ew, eb, 8),
              "merge_mcu": lambda: merge.merge_mcu(wy, by, wc, bc, nmch, nmcw,
                                                   "420")}
@@ -442,6 +455,7 @@ def wrapper_launches(say) -> None:
                                     "rows_scan_kernel"),
              "stream_concat_chunked": ("stream_concat_chunked_kernel",),
              "stream_concat": ("stream_concat_kernel",),
+             "merge_rows": ("merge_rows_kernel",),
              "pack_blocks": ("pack_blocks_kernel",),
              "merge_mcu": ("merge_mcu_kernel",)}
     mine = {k: w for k in seen for w, tags in owner.items()
@@ -454,14 +468,17 @@ def wrapper_launches(say) -> None:
                  for k, (c, us) in seen.items()})
     check(counts == {"stitch_segments": 2, "stream_concat_rows": 1,
                      "stream_concat_chunked": 1, "stream_concat": 1,
-                     "pack_blocks": 1, "merge_mcu": 1}
+                     "merge_rows": 1, "pack_blocks": 1, "merge_mcu": 1}
           and other == 0,
           f"launches per wrapper call: {counts}, other events {other}")
 
 
 def kernel_edge_phases(dev, say) -> None:
-    """K1-K5, K7, K9 and K10 against their plain versions, where every
-    level and word must be equal (max_abs_err 0): K7 on
+    """K1-K5 and K7-K10 against their plain versions, where every
+    level and word must be equal (max_abs_err 0): K8 on
+    tests/kernel_edge_cases.py's rows (K8_CASES) at every segment width
+    16-128 (empty, sub-word, exactly full and clamped blocks, ragged and
+    narrow rows, caps 1-8 and the 4:2:0 MCU streams' 48, 96 and 318); K7 on
     tests/kernel_edge_cases.py's fused elements (96-bit elements at every
     residue, exact word ends and cap overflow at caps 1, 8 and 53, nb 1,
     31, 33 and 1000, 64 and 130 elements a block), the overflow flag too;
@@ -505,6 +522,14 @@ def kernel_edge_phases(dev, say) -> None:
             want = pack.pack_blocks_plain(ew, eb, cap)
             diff(f"K7 edges nb {nb} E {n_elem} cap {cap}",
                  (got[0], got[1], got[2]), (want[0], want[1], want[2]))
+    for i, case in enumerate(K8_CASES):
+        words, bits, nbh, nbw, _ = k8_case(i)
+        words = torch.from_numpy(words.view(np.int32)).to(dev)
+        bits = torch.from_numpy(bits).to(dev)
+        for ws in concat.SEGMENT_WIDTHS:
+            diff(f"K8 edges {case} ws {ws}",
+                 concat.merge_rows(words, bits, nbh, nbw, ws),
+                 concat.merge_rows_plain(words, bits, nbh, nbw, ws))
     smem_optin = concat._smem_optin
     for scan in ("shared", "global"):
         if scan == "global":  # the second launch, forced by a small limit
@@ -754,7 +779,7 @@ def color_phases(dev, say) -> list:
         sizes[ss] = len(got)
     say("color_other_subsamplings", shape=[SIDE_H, SIDE_W, 3], bytes=sizes)
 
-    # --- 9. color capacity ladder: K8 past 48 KB of shared memory --------
+    # --- 9. color capacity ladder: K8 segments past 48 KB ----------------
     noise = np.random.default_rng(7).integers(
         0, 256, (LADDER_H, LADDER_W, 3), dtype=np.uint8)
     cfg_q100 = EncodeConfig(quality=100, dct_dtype="int32",
@@ -769,8 +794,8 @@ def color_phases(dev, say) -> list:
                                                    device="cpu"),
           "color ladder: card bytes != CPU bytes")
     say("color_capacity_ladder", shape=[LADDER_H, LADDER_W, 3], rungs=rungs,
-        cap=top, merge_rows_smem_bytes=[(6 * c + 1) * 512
-                                        for c in (8, 16, 53)],
+        cap=top, merge_rows_segment_bytes=[(6 * c + 1) * 512
+                                           for c in (8, 16, 53)],
         bytes=len(jpg_noise))
 
     # --- 10. color kernel timings and bounds -----------------------------
@@ -1520,7 +1545,8 @@ def large_frame_phases(dev, say) -> list:
     segments, end to end through encode_grayscale / encode_color (K10
     launched, K9 not), the bytes against the CPU path (gray int32) or the
     CPU entropy chain fed the card's levels (float, and 4:2:0 int32),
-    e2e MPix/s, a stage breakdown and K10's and K9's device times; then a
+    e2e MPix/s, a stage breakdown and K8's, K10's and K9's device times;
+    then a
     3024 x 4032 4:2:0 Q100 noise encode whose upper rungs lie past the
     budget. Returns the kernel entries."""
     cpu = torch.device("cpu")
@@ -1653,7 +1679,7 @@ def large_frame_phases(dev, say) -> list:
             **(color_stage_breakdown(img, cfg) if color
                else stage_breakdown(img, cfg)))
 
-        # --- 24. K10 and K9 at 8K, device ms and bounds ------------------
+        # --- 24. K8, K10 and K9 at 8K, device ms and bounds -------------
         lv = levels(False)
         words, bits, nbh, nbw = streams(lv)
         segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw)
@@ -1676,8 +1702,20 @@ def large_frame_phases(dev, say) -> list:
                         segs, seg_bits, out_words, tile), cfg.pad_ones),
                 nbytes, valid_seg_words * 2,
                 {"bound_ms_whole_buffer": whole / HBM_BYTES_PER_S * 1e3})
-        specs = [spec]
-        results = {"stream_concat_chunked": result}
+        # K8 on the frame's streams: the blocks' valid words and bit
+        # counts in, every segment word and the segments' counts out
+        valid_words = int(((bits.long() + 31) // 32).sum())
+        specs = [spec, (
+            "merge_rows", "jpegtpu_torch/csrc/concat.cu",
+            "jpegtpu/entropy/pallas_concat.py:240",
+            lambda: concat.merge_rows(words, bits, nbh, nbw),
+            lambda: concat.merge_rows_plain(words, bits, nbh, nbw),
+            valid_words * 4 + bits.numel() * 4 + segs.numel() * 4
+            + segs.shape[0] * 4, valid_words * 2)]
+        results = {"stream_concat_chunked": result,
+                   "merge_rows": equal_streams(
+                       f"K8 8K {kind}", (segs, seg_bits),
+                       concat.merge_rows_plain(words, bits, nbh, nbw))}
         if color:
             nmch, nmcw = BIG_H // 16, BIG_W // 16
             dy, dc = color_pipeline.color_dc_differences(*lv, nmch, nmcw,
@@ -1879,7 +1917,8 @@ def batch_k6_phases(dev, say) -> list:
     every file held against its single-image encode (which merges with
     K5), an int32 2-image batch against the CPU path, MPix/s and a stage
     breakdown; a 64 x 512 x 512 batch at rung 16, which jpegtpu also
-    merges with K6; and K6's device time. Returns the kernel entries."""
+    merges with K6; and K8's, K6's and K11's device times. Returns the
+    kernel entries."""
     n, h, w, cap = K6_N, H, W, 8
     cfg = EncodeConfig(subsampling="420")
     nmch, nmcw = h // 16, w // 16
@@ -1914,9 +1953,12 @@ def batch_k6_phases(dev, say) -> list:
         got, merge.merge_mcu(wy, by, wc, bc, n * nmch, nmcw, "420"))),
         "batch_k6: K6 != K5 on the same streams")
     del wy, by, wc, bc
-    # K11 on the route's row segments (K8 at ws 128), both pads
-    segs6, sb6 = concat.merge_rows(*got, n * nmch, nmcw,
-                                   batch.segment_width(nmcw))
+    # K8 (ws 128) and K11 on the route's row segments, both pads
+    ws6 = batch.segment_width(nmcw)
+    segs6, sb6 = concat.merge_rows(*got, n * nmch, nmcw, ws6)
+    results["merge_rows"] = equal_streams(
+        "K8 batch_k6", (segs6, sb6),
+        concat.merge_rows_plain(*got, n * nmch, nmcw, ws6))
     k11_args = (segs6, sb6, segs6.shape[0] // n,
                 got[0].shape[0] * nmch * nmcw, True)
     for pad_ones in (False, True):
@@ -1925,7 +1967,6 @@ def batch_k6_phases(dev, say) -> list:
             f"K11 batch_k6 pad_ones {pad_ones}",
             concat.stream_concat_rows(*args),
             concat.stream_concat_rows_plain(*args))
-    del got
     say("batch_k6_kernels_vs_plain", shape=[n, h, w, 3], mcus=m,
         slot_major=list(sw.shape), k6_equals_k5=True,
         segments=list(segs6.shape), **results)
@@ -1991,7 +2032,14 @@ def batch_k6_phases(dev, say) -> list:
     e = sw.shape[0]
     valid_words = int(((sb.long().clamp(max=cap * 32) + 31) // 32).sum())
     valid_seg_words = int(((sb6.long() + 31) // 32).sum())
+    valid_mcu_words = int(((got[1].long() + 31) // 32).sum())
     specs_t = [
+        ("merge_rows", "jpegtpu_torch/csrc/concat.cu",
+         "jpegtpu/entropy/pallas_concat.py:240",
+         lambda: concat.merge_rows(*got, n * nmch, nmcw, ws6),
+         lambda: concat.merge_rows_plain(*got, n * nmch, nmcw, ws6),
+         valid_mcu_words * 4 + m * 4 + segs6.numel() * 4 + sb6.numel() * 4,
+         valid_mcu_words * 2),
         ("merge_streams", "jpegtpu_torch/csrc/merge.cu",
          "jpegtpu/entropy/pallas_pack.py:683",
          lambda: merge.merge_streams(sw, sb),
@@ -2007,7 +2055,7 @@ def batch_k6_phases(dev, say) -> list:
     ]
     entries = time_kernels(specs_t, launches, results, "batch_k6",
                            [n, h, w, 3], say)
-    del sw, sb, segs6, sb6, k11_args
+    del sw, sb, segs6, sb6, k11_args, got
     torch.cuda.empty_cache()
     return entries
 
@@ -2049,13 +2097,14 @@ def main() -> int:
           and occupancy["pack_blocks_kernel"] > 0
           and min(occupancy["stream_concat_chunked_kernel"].values()) > 0
           and min(occupancy["merge_mcu_kernel"].values()) > 0
+          and min(occupancy["merge_rows_kernel"].values()) > 0
           and occupancy["stream_concat_kernel"] > 0,
           f"occupancy query failed: {occupancy}")
 
-    # --- 1b. device launches of one K12, K11, K10, K9, K7, K5 call -------
+    # --- 1b. device launches of one K12, K11, K10, K9, K8, K7, K5 call ---
     wrapper_launches(say)
 
-    # --- 1c. K1-K5, K7, K9, K10 against their plain versions, edges -----
+    # --- 1c. K1-K5, K7-K10 against their plain versions, edges ---------
     kernel_edge_phases(dev, say)
 
     # --- 2. each kernel against its plain version, main-path shapes ----

@@ -25,16 +25,26 @@
 // once per kernel; ~7 MB at 12 MPix, cap 8, ~2 us each at 3.35 TB/s), so
 // the design keeps every global access coalesced and does the bit-granular
 // work in shared memory or in registers:
-// - A: one thread block of max(ws, 32) threads holds max(ws, 32) / ws
-//   segments. A shared-memory Hillis-Steele scan of the bit counts,
-//   masked at segment edges; each thread funnel-shifts its block's words by
-//   offset & 31 and ORs them into its segment in shared memory with shared
-//   atomicOr; the block's segments, adjacent in the output, go out in one
-//   coalesced pass. The TPU's one-hot MXU deposit and lane skew do not
-//   exist here. The segments live in dynamic shared memory: above 48 KB
-//   (the color scan's per-MCU streams of E * cap words reach it) the launch
-//   opts in to the device's larger limit first, and a block past that
-//   limit is refused (jt_merge_rows_max_cap says where it lies for a ws).
+// - A: one thread block of max(ws, 32) threads stages one segment (two at
+//   ws 16) in dynamic shared memory, a thread a block, and writes each
+//   word of it once, by a 16-byte store. Thread t loads block t's count
+//   and, with it, the block's first word (which holds bits unless the
+//   block is empty) while the block zeroes its segment in shared memory;
+//   once the count is in, the block's next words (4, or 8 for MCU
+//   streams) are in flight while the block scans the counts with warp
+//   shuffles (and, past ws 32, one step across the warps: one or two
+//   barriers in all). Each block then deposits its words at its offset:
+//   plain stores for the words it alone covers, atomicOr on its first
+//   and last word, which it may share. After one barrier the segment goes
+//   out: its valid words from shared memory, the zeros past them (85% of
+//   a Q50 segment) straight from registers. The TPU's one-hot MXU
+//   deposit and lane skew do not exist here. Above 48 KB (4:2:0 MCU
+//   streams from rung 16) the launch opts in to the device's larger
+//   limit, and a cap past that limit is refused (jt_merge_rows_max_cap).
+//   What bounds it at one frame is not its bytes but the chain a block
+//   waits through before it can store: the counts, then the words.
+//   tools/k8_word_parallel.cu keeps a word-parallel design with no
+//   segment in shared memory (PERF.md compares them).
 // - B and D: one launch writes every stream word once with plain stores
 //   (16 bytes where aligned), the tail padding and the total: no
 //   zero-fill, no prefix sums, atomics or padding ops around it. B runs
@@ -105,63 +115,150 @@
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kMinThreads = 32;
+// K8: a thread block stages merge_lanes(ws) = max(ws, 32) blocks, one
+// segment (two at ws 16), a thread each. A block's words pass through
+// registers kSpec at a time: kMergeSpecLong where blocks may hold
+// kMergeLongCap words or more (the MCU streams), else kMergeSpecShort;
+// the first kMergeEager of them are loaded with its bit count, before it
+// is known (the first word of a block holds bits unless it is empty).
+constexpr int kMergeSpecShort = 4;
+constexpr int kMergeSpecLong = 8;
+constexpr int kMergeLongCap = 32;
+constexpr int kMergeEager = 1;
+constexpr int kMergeMaxLanes = 128;  // the widest segment
 constexpr int kStreamThreads = 256;
 constexpr int kChunkThreads = 1024;  // K10: one thread block an SM
 // K9: one thread block an SM (tools/torch_kernel_ab.py's sweep of 128-1024
 // threads at 1-12 blocks an SM: the fastest or within 3% on every stream)
 constexpr int kK9Threads = 512;
 
-__host__ __device__ inline int merge_threads(int ws) {
-  return ws < kMinThreads ? kMinThreads : ws;
+__host__ __device__ inline int merge_lanes(int ws) {
+  return ws < 32 ? 32 : ws;
 }
 
-__global__ void __launch_bounds__(kLanes)
+// K8's dynamic shared memory: the block's segments, merge_lanes(ws) * (cap
+// + 1) words.
+inline size_t merge_smem(int ws, int cap) {
+  return (size_t)merge_lanes(ws) * (cap + 1) * sizeof(unsigned);
+}
+
+// The segment-local inclusive scan of the block's counts (b: this lane's),
+// ws lanes a segment: warp shuffles, then for ws > 32 (one segment a
+// block) the totals of the earlier warps. Thread t writes inc[t]. Its
+// barriers also publish what the block wrote to shared memory before.
+__device__ __forceinline__ int merge_scan(int b, int ws, int* inc,
+                                          int* warp_tot) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int width = ws < 32 ? ws : 32;
+  int x = b;
+  for (int o = 1; o < width; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o, width);
+    if ((lane & (width - 1)) >= o) x += y;
+  }
+  if (ws > 32) {
+    if (lane == 31) warp_tot[warp] = x;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) x += warp_tot[w];
+  }
+  inc[t] = x;
+  __syncthreads();
+  return x;
+}
+
+// K8. Block b holds segments s0 = b * (lanes / ws) onwards, staged in
+// shared memory, which it zeroes while lane t loads block t's count and
+// its first kMergeEager words; once the count is in, the lane loads its
+// next words (up to kSpec), in flight while the block scans the counts.
+// Each lane then deposits its words at its offset (plain stores for the
+// words it alone covers, atomicOr on its first and last word, which it
+// may share with its neighbours; kSpec words a round), and after one
+// barrier every word of the segments goes out once, in 16-byte groups:
+// the valid ones from shared memory, the zeros past them from registers.
+// Storing those zeros before the deposit, as soon as the scan gives each
+// segment's total, was slower on the gray rows and the batches and faster
+// only on the single 4:2:0 frame (tools/torch_kernel_ab.py): there they
+// compete with the word loads.
+template <int kSpec>
+__global__ void __launch_bounds__(kMergeMaxLanes)
 merge_rows_kernel(const unsigned* __restrict__ words,
                   const int* __restrict__ bits, int nb, int cap, int nbh,
                   int nbw, int ws, unsigned* __restrict__ segs,
                   int* __restrict__ seg_bits) {
-  extern __shared__ unsigned seg[];  // blockDim.x / ws segments
-  __shared__ int scan[kLanes];
+  extern __shared__ uint4 stage4[];
+  unsigned* stage = reinterpret_cast<unsigned*>(stage4);
+  __shared__ int inc[kMergeMaxLanes];
+  __shared__ int warp_tot[kMergeMaxLanes / 32];
   const int t = threadIdx.x;
-  const int per_block = blockDim.x / ws;
+  const int per_block = merge_lanes(ws) / ws;
   const int per_row = (nbw + ws - 1) / ws;
   const int nseg = nbh * per_row;
   const int s0 = blockIdx.x * per_block;
-  const int s = s0 + t / ws;
-  const int l = t % ws;
-  const int col = (s % per_row) * ws + l;
-  const size_t blk = (size_t)(s / per_row) * nbw + col;
-  // A block past cap words overflowed (the encode retries at a larger
-  // cap); clamping keeps every deposit inside the segment meanwhile.
-  const int b = (s < nseg && col < nbw) ? min(bits[blk], cap * 32) : 0;
-  const int seg_words = ws * (cap + 1);
-  for (int i = t; i < per_block * seg_words; i += blockDim.x) seg[i] = 0u;
-
-  scan[t] = b;  // inclusive Hillis-Steele scan inside each segment
-  __syncthreads();
-  for (int off = 1; off < ws; off <<= 1) {
-    const int v = l >= off ? scan[t - off] : 0;
-    __syncthreads();
-    scan[t] += v;
-    __syncthreads();
-  }
-  const int excl = scan[t] - b;
-  const int r = excl & 31;
-  const int nw = (b + 31) >> 5;
-  unsigned* mine = seg + (t / ws) * seg_words;
-  for (int j = 0; j < nw; ++j) {
-    const unsigned w = words[(size_t)j * nb + blk];
-    const int idx = (excl >> 5) + j;
-    atomicOr(&mine[idx], w >> r);
-    if (r) atomicOr(&mine[idx + 1], w << (32 - r));
-  }
-  __syncthreads();
   const int live = min(per_block, nseg - s0);
-  unsigned* dst = segs + (size_t)s0 * seg_words;
-  for (int i = t; i < live * seg_words; i += blockDim.x) dst[i] = seg[i];
-  if (l == ws - 1 && s < nseg) seg_bits[s] = scan[t];
+  const int seg_words = ws * (cap + 1), seg_groups = seg_words / 4;
+  const int s = s0 + t / ws;
+  const int col = (s % per_row) * ws + t % ws;
+  const size_t blk = (size_t)(s / per_row) * nbw + col;
+  const bool real = s < nseg && col < nbw;
+  int b = real ? bits[blk] : 0;
+  unsigned w[kSpec];
+#pragma unroll
+  for (int i = 0; i < kSpec; ++i) {
+    w[i] = i < kMergeEager && real && i < cap ? words[(size_t)i * nb + blk]
+                                              : 0u;
+  }
+  for (int i = t; i < live * seg_groups; i += blockDim.x) {
+    stage4[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // A block past cap words overflowed (the encode retries at a larger
+  // cap); clamping keeps its bits inside the segment meanwhile.
+  b = min(b, cap * 32);
+  const int nw = (b + 31) >> 5;
+#pragma unroll
+  for (int i = 0; i < kSpec; ++i) {
+    if (i >= nw) {
+      w[i] = 0u;
+    } else if (i >= kMergeEager) {
+      w[i] = words[(size_t)i * nb + blk];
+    }
+  }
+  const int x = merge_scan(b, ws, inc, warp_tot);
+  if (t % ws == ws - 1 && t / ws < live) seg_bits[s] = x;
+  if (b > 0) {
+    const int excl = x - b, f = excl >> 5, r = excl & 31;
+    const int n_out = ((excl + b - 1) >> 5) - f + 1;  // words it touches
+    unsigned* mine = stage + (t / ws) * seg_words + f;
+    unsigned prev = 0u;
+    for (int c = 0; c < n_out; c += kSpec) {
+      if (c) {
+#pragma unroll
+        for (int i = 0; i < kSpec; ++i) {
+          w[i] = c + i < nw ? words[(size_t)(c + i) * nb + blk] : 0u;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kSpec; ++i) {
+        const int j = c + i;
+        if (j < n_out) {
+          const unsigned v = r ? (w[i] >> r) | (prev << (32 - r)) : w[i];
+          if (j == 0 || j == n_out - 1) {
+            atomicOr(&mine[j], v);
+          } else {
+            mine[j] = v;
+          }
+        }
+        prev = w[i];
+      }
+    }
+  }
+  __syncthreads();
+  uint4* out = reinterpret_cast<uint4*>(segs + (size_t)s0 * seg_words);
+  for (int p = 0; p < live; ++p) {
+    const int valid = (inc[p * ws + ws - 1] + 31) >> 5;
+    for (int g = t; g < seg_groups; g += blockDim.x) {
+      out[p * seg_groups + g] = 4 * g < valid ? stage4[p * seg_groups + g]
+                                              : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 }
 
 // Word boundaries of share i of n words cut into `parts` shares of whole
@@ -357,8 +454,8 @@ rows_scan_kernel(const int* __restrict__ seg_bits, int segs_per_image,
 }  // namespace
 
 // The largest cap whose segments fit the current device's opt-in shared
-// memory per block at segment width ws (beside the kernel's static scan
-// array), or -1 if the device cannot be queried.
+// memory per block at segment width ws (beside the kernel's static
+// arrays), or -1 if the device cannot be queried.
 extern "C" int jt_merge_rows_max_cap(int ws) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -366,26 +463,52 @@ extern "C" int jt_merge_rows_max_cap(int ws) {
                              dev) != cudaSuccess) {
     return -1;
   }
-  const int seg_bytes = optin - (int)(kLanes * sizeof(int));
-  return seg_bytes / (merge_threads(ws) * (int)sizeof(unsigned)) - 1;
+  const int fixed = (kMergeMaxLanes + kMergeMaxLanes / 32) * (int)sizeof(int);
+  return (optin - fixed) / (int)merge_smem(ws, 0) - 1;
+}
+
+using MergeKernel = void (*)(const unsigned*, const int*, int, int, int, int,
+                            int, unsigned*, int*);
+
+// K8's kernel for blocks of up to cap words.
+static MergeKernel merge_rows_for(int cap) {
+  return cap >= kMergeLongCap ? merge_rows_kernel<kMergeSpecLong>
+                              : merge_rows_kernel<kMergeSpecShort>;
+}
+
+// Opts K8 in to its dynamic shared memory at (ws, cap) where that passes
+// the 48 KB a launch gets without asking.
+static cudaError_t merge_rows_optin(int ws, int cap) {
+  const size_t smem = merge_smem(ws, cap);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(merge_rows_for(cap),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Thread blocks of K8 one SM holds at width ws and cap, or -1 on an
+// error; launches nothing.
+extern "C" int jt_merge_rows_per_sm(int ws, int cap) {
+  int n = 0;
+  if (merge_rows_optin(ws, cap) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, merge_rows_for(cap), merge_lanes(ws), merge_smem(ws, cap)) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return n;
 }
 
 extern "C" int jt_merge_rows(const unsigned* words, const int* bits, int nb,
                              int cap, int nbh, int nbw, int ws, unsigned* segs,
                              int* seg_bits, cudaStream_t stream) {
-  const int threads = merge_threads(ws);
   const int nseg = nbh * ((nbw + ws - 1) / ws);
-  const int per_block = threads / ws;
-  const int nblocks = (nseg + per_block - 1) / per_block;
+  const int per_block = merge_lanes(ws) / ws;
   if (nseg > 0) {
-    const size_t smem = (size_t)(cap + 1) * threads * sizeof(unsigned);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          merge_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    merge_rows_kernel<<<nblocks, threads, smem, stream>>>(
+    const cudaError_t err = merge_rows_optin(ws, cap);
+    if (err != cudaSuccess) return (int)err;
+    merge_rows_for(cap)<<<(nseg + per_block - 1) / per_block,
+                          merge_lanes(ws), merge_smem(ws, cap), stream>>>(
         words, bits, nb, cap, nbh, nbw, ws, segs, seg_bits);
   }
   return (int)cudaGetLastError();

@@ -67,10 +67,10 @@ def merge_rows(words: torch.Tensor, bits: torch.Tensor, nbh: int, nbw: int,
 
     A block's bits count at most cap * 32 here: a block past that
     overflowed and the encode retries at a larger cap. On CUDA tensors
-    this launches csrc/concat.cu (merge_rows), whose thread block holds
-    max(ws, 32) * (cap + 1) words of segments in shared memory; it raises
-    if the card cannot hold that. On CPU tensors it runs
-    `merge_rows_plain`."""
+    this is one launch of csrc/concat.cu (merge_rows), whose thread block
+    stages max(ws, 32) * (cap + 1) words of segments in shared memory and
+    writes every segment word once with 16-byte stores; it raises if the
+    card cannot hold that. On CPU tensors it runs `merge_rows_plain`."""
     cap, nb = words.shape
     if nb != nbh * nbw or bits.shape != (nb,):
         raise ValueError(f"words {tuple(words.shape)} / bits "

@@ -256,6 +256,58 @@ def k9_case(i: int) -> tuple:
     return segs, bits, (int(bits.astype(np.int64).sum()) + 31) // 32 + extra
 
 
+# K8's rows (ws, nbh, nbw, cap, kind): every segment width, ragged last
+# segments (nbw % ws != 0), rows narrower than a segment, one block a row,
+# blocks that are empty, shorter than a word (many to a word), exactly
+# cap * 32 bits and past it (clamped), and the 4:2:0 MCU streams' caps
+# 48, 96 and 318
+K8_CASES = (
+    (16, 3, 37, 8, "mixed"),
+    (32, 4, 70, 8, "mixed"),
+    (64, 2, 130, 8, "mixed"),
+    (128, 2, 300, 8, "mixed"),
+    (128, 3, 7, 8, "mixed"),
+    (16, 5, 1, 8, "mixed"),
+    (32, 2, 40, 1, "full"),
+    (128, 2, 140, 2, "clamped"),
+    (64, 3, 64, 4, "empty"),
+    (64, 2, 100, 8, "short"),
+    (16, 2, 33, 48, "mixed"),
+    (128, 1, 150, 96, "mixed"),
+    (32, 2, 36, 318, "mixed"),
+)
+
+
+def k8_case(i: int) -> tuple:
+    """K8_CASES[i] made: (words [cap, nb] uint32, bits [nb] int32, nbh,
+    nbw, ws). A block's words are zero past its bits, as K4 and K5 store
+    them; a block past cap * 32 bits (it overflowed) fills its cap words.
+    kind "mixed": any count, a quarter empty, a fifth under a word, a
+    tenth exactly cap * 32 and a tenth past it; "full": every block cap *
+    32; "clamped": every block past it; "empty": no bits at all; "short":
+    0-12 bits a block, so a word holds many blocks."""
+    ws, nbh, nbw, cap, kind = K8_CASES[i]
+    rng = np.random.default_rng(300 + i)
+    nb, top = nbh * nbw, cap * 32
+    if kind == "full":
+        bits = np.full(nb, top)
+    elif kind == "clamped":
+        bits = top + rng.integers(1, 500, nb)
+    elif kind == "empty":
+        bits = np.zeros(nb, np.int64)
+    elif kind == "short":
+        bits = rng.integers(0, 13, nb)
+    else:
+        bits = rng.integers(0, top + 1, nb)
+        u = rng.random(nb)
+        bits[u < 0.25] = 0
+        bits[(u >= 0.25) & (u < 0.45)] = rng.integers(1, 32)
+        bits[(u >= 0.45) & (u < 0.55)] = top
+        bits[(u >= 0.55) & (u < 0.65)] = top + rng.integers(1, 100)
+    words = _msb_words(rng, np.minimum(bits, top), cap).T.copy()
+    return words, bits.astype(np.int32), nbh, nbw, ws
+
+
 # (fy, fx) of each subsampling K5 takes
 SAMPLING = {"420": (2, 2), "422": (1, 2), "444": (1, 1)}
 

@@ -19,8 +19,9 @@ from jpegtpu_torch.entropy.device import (dc_differences, symbol_histograms,
                                           y_dc_differences)
 from jpegtpu_torch.ops import transform
 
-from kernel_edge_cases import (K10_CASES, K7_CAPS, K9_CASES, k10_case,
-                               k5_streams, k7_elements, k9_case)
+from kernel_edge_cases import (K10_CASES, K7_CAPS, K8_CASES, K9_CASES,
+                               k10_case, k5_streams, k7_elements, k8_case,
+                               k9_case)
 from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.gpu
@@ -154,6 +155,22 @@ def test_merge_rows_refuses_a_segment_past_the_card(cuda):
     bits = torch.zeros((128,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         concat.merge_rows(words, bits, 1, 128)
+
+
+@pytest.mark.parametrize("ws", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", range(len(K8_CASES)))
+def test_merge_rows_edge_cases_match_plain(cuda, case, ws):
+    """K8 on tests/kernel_edge_cases.py's rows at every width: empty,
+    sub-word, full and clamped blocks, ragged and narrow rows, MCU-stream
+    caps 48, 96 and 318."""
+    words, bits, nbh, nbw, _ = k8_case(case)
+    words = torch.from_numpy(words.view(np.int32)).to(cuda)
+    bits = torch.from_numpy(bits).to(cuda)
+    before = _build.LAUNCHES["merge_rows"]
+    segs, seg_bits = concat.merge_rows(words, bits, nbh, nbw, ws)
+    assert _build.LAUNCHES["merge_rows"] == before + 1
+    s_p, sb_p = concat.merge_rows_plain(words, bits, nbh, nbw, ws)
+    assert torch.equal(seg_bits, sb_p) and torch.equal(segs, s_p)
 
 
 @pytest.mark.parametrize("ss", ["420", "422", "444"])

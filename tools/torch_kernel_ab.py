@@ -1,9 +1,9 @@
-"""Time this tree's K1-K5, K7, K9 and K10 (jpegtpu_torch/csrc/transform.cu,
+"""Time this tree's K1-K5 and K7-K10 (jpegtpu_torch/csrc/transform.cu,
 pack.cu, merge.cu and concat.cu) against another checkout's, on one CUDA
 card, in one process.
 
     python3 tools/torch_kernel_ab.py --parent DIR [--out FILE]
-        [--kernels k1-k4,k5,k7,k9,k10]
+        [--kernels k1-k4,k5,k7,k8,k9,k10]
 
 DIR holds the other checkout (for example `git archive` of the parent
 commit, unpacked); its jpegtpu_torch is imported as jpegtpu_torch_parent
@@ -24,6 +24,18 @@ tools/k5_staged.cu (8 words a block staged, the zeros stored while they
 arrive), both built here and held to the same outputs (turns: other,
 this, words, words, staged, staged, this, other), with the frame's
 stores alone and the word-parallel K5 over its threads an MCU.
+K8 runs on the block streams of 3024 x 4032 gray (and of its staged
+path's one row), 3024 x 4032 4:2:0 (48-word MCU streams), 8K gray and
+4:2:0, the 1024 x 512 x 512 gray and 4:2:0 batch stacks (ws 64 / 32), the
+K6 route's 16 x 3024 x 4032 4:2:0 stack (ws 128) and 3024 x 4032 4:2:0
+Q100 noise at caps 16 and 53 (96- and 318-word MCU streams), beside
+tools/k8_word_parallel.cu (no segment in shared memory, built here and
+held to the same outputs; turns: other, this, words, words, this,
+other), with the fill floor of each segment buffer (torch.zeros, and a
+kernel of 16-byte zero stores alone, and one that reads each segment's
+bit counts before it stores the segment as zeros) and K8's byte bound;
+at six of the shapes, this K8 built with other constants (words a block
+loads a round, short and long streams; words loaded with its count).
 K7 runs on the staged path's fused elements of the 3024 x 4032 gray
 levels, Q50 and Q100 seeded noise, at caps 8, 16 and 53, beside
 tools/k7_staged.cu (its elements staged in shared memory, built here and
@@ -43,7 +55,7 @@ to the same outputs, in the same turns as the warp K4), and at 8K with
 and without its pad, over a sweep of its thread-block counts, with the
 stream's zero-fill alone and K10 on segments with no bits beside it. One
 JSON line per kernel and shape, with the card's name and power limit,
-and one with each K4's, K5's, K7's and K10's thread blocks an SM.
+and one with each K4's, K5's, K7's, K8's and K10's thread blocks an SM.
 """
 from __future__ import annotations
 
@@ -65,8 +77,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from jpegtpu_torch import (EncodeConfig, _build, color_pipeline,  # noqa: E402
-                           pipeline, tables)
+from jpegtpu_torch import (EncodeConfig, _build, batch,  # noqa: E402
+                           color_pipeline, pipeline, tables)
 from jpegtpu_torch.entropy import concat, device, merge, pack  # noqa: E402
 from jpegtpu_torch.entropy import treepack  # noqa: E402
 from jpegtpu_torch.entropy.device import (dc_differences,  # noqa: E402
@@ -347,8 +359,9 @@ def load_k9_threads(threads_list):
     parallel): {threads: (join(segs, seg_bits, out_words, blocks) ->
     (stream, total) with the pad of 1s, per_sm(nseg))}."""
     text = open(os.path.join(_build.CSRC, "concat.cu")).read()
-    text = text.replace('#include "bitjoin.cuh"',
-                        f'#include "{_build.CSRC}/bitjoin.cuh"')
+    for header in ("bitjoin.cuh", "cp_async.cuh"):
+        text = text.replace(f'#include "{header}"',
+                            f'#include "{_build.CSRC}/{header}"')
     procs = {}
     for t in threads_list:
         src = os.path.join(ROOT, "build", "tools", f"k9_threads{t}.cu")
@@ -387,6 +400,123 @@ def load_k9_threads(threads_list):
     return built
 
 
+K8_WORDS_SRC = os.path.join(ROOT, "tools", "k8_word_parallel.cu")
+K8_WORDS_SO = os.path.join(ROOT, "build", "tools",
+                           "libk8_word_parallel.so")
+
+
+def load_word_parallel_k8():
+    """tools/k8_word_parallel.cu, built with the package's nvcc flags:
+    (merge(words, bits, nbh, nbw, ws) -> (segs, seg_bits), its thread
+    blocks an SM (ws, cap), fill(buf) -> buf: 16-byte zero stores alone,
+    count_fill(bits, nbh, nbw, ws, segs, seg_bits): the counts read, then
+    the segments stored as zeros, ptxas's lines)."""
+    os.makedirs(os.path.dirname(K8_WORDS_SO), exist_ok=True)
+    report = subprocess.run(_build._nvcc_command(K8_WORDS_SRC, K8_WORDS_SO),
+                            check=True, capture_output=True, text=True)
+    ptxas = cs.ptxas_lines(report.stdout + report.stderr)
+    lib = ctypes.CDLL(K8_WORDS_SO)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.jt_merge_rows_words.argtypes = [P, P, I, I, I, I, I, P, P, P]
+    lib.jt_merge_rows_words_per_sm.argtypes = [I, I]
+    lib.jt_fill_zero4.argtypes = [P, L, I, P]
+    lib.jt_count_fill.argtypes = [P, I, I, I, I, P, P, P]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def merge_words(words, bits, nbh, nbw, ws):
+        cap, nb = words.shape
+        nseg = nbh * -(-nbw // ws)
+        segs = torch.empty((nseg, ws * (cap + 1)), dtype=torch.int32,
+                           device=words.device)
+        seg_bits = torch.empty((nseg,), dtype=torch.int32,
+                               device=words.device)
+        err = lib.jt_merge_rows_words(
+            words.data_ptr(), bits.data_ptr(), nb, cap, nbh, nbw, ws,
+            segs.data_ptr(), seg_bits.data_ptr(),
+            torch.cuda.current_stream(words.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"merge_rows_words: cudaError {err}")
+        return segs, seg_bits
+
+    def fill(buf):
+        err = lib.jt_fill_zero4(buf.data_ptr(), buf.numel(), 8 * sms,
+                                torch.cuda.current_stream(
+                                    buf.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"fill_zero4: cudaError {err}")
+        return buf
+
+    def count_fill(bits, nbh, nbw, ws, segs, seg_bits):
+        err = lib.jt_count_fill(bits.data_ptr(), segs.shape[1] // ws - 1, nbh,
+                                nbw, ws, segs.data_ptr(), seg_bits.data_ptr(),
+                                torch.cuda.current_stream(
+                                    bits.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"count_fill: cudaError {err}")
+        return segs
+
+    return (merge_words, lib.jt_merge_rows_words_per_sm, fill, count_fill,
+            ptxas)
+
+
+# This tree's K8 built with other constants of csrc/concat.cu: {label:
+# (constant, value)}; the shipped values are K8_SHIPPED
+K8_SHAPES = {"eager0": ("kMergeEager", 0),
+             "short8": ("kMergeSpecShort", 8),
+             "long4": ("kMergeSpecLong", 4)}
+K8_SHIPPED = {"kMergeSpecShort": 4, "kMergeSpecLong": 8, "kMergeLongCap": 32,
+              "kMergeEager": 1}
+
+
+def load_k8_shapes(shapes=K8_SHAPES):
+    """This tree's K8 built with each of shapes' constants from copies of
+    csrc/concat.cu under build/tools/ (the nvcc runs in parallel):
+    {label: merge(words, bits, nbh, nbw, ws) -> (segs, seg_bits)}."""
+    text = open(os.path.join(_build.CSRC, "concat.cu")).read()
+    for header in ("bitjoin.cuh", "cp_async.cuh"):
+        text = text.replace(f'#include "{header}"',
+                            f'#include "{_build.CSRC}/{header}"')
+    procs = {}
+    for label, (name, value) in shapes.items():
+        src = os.path.join(ROOT, "build", "tools", f"k8_{label}.cu")
+        so = os.path.join(ROOT, "build", "tools", f"libk8_{label}.so")
+        os.makedirs(os.path.dirname(src), exist_ok=True)
+        old = f"constexpr int {name} = {K8_SHIPPED[name]};"
+        if old not in text:
+            raise RuntimeError(f"csrc/concat.cu has no {old}")
+        with open(src, "w") as f:
+            f.write(text.replace(old, f"constexpr int {name} = {value};"))
+        procs[label] = (so, subprocess.Popen(
+            _build._nvcc_command(src, so), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE))
+    built = {}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for label, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"K8 {label}: nvcc failed: {err}")
+        lib = ctypes.CDLL(so)
+        lib.jt_merge_rows.argtypes = [P, P, I, I, I, I, I, P, P, P]
+
+        def merge(words, bits, nbh, nbw, ws, lib=lib, label=label):
+            cap, nb = words.shape
+            nseg = nbh * -(-nbw // ws)
+            segs = torch.empty((nseg, ws * (cap + 1)), dtype=torch.int32,
+                               device=words.device)
+            seg_bits = torch.empty((nseg,), dtype=torch.int32,
+                                   device=words.device)
+            err = lib.jt_merge_rows(
+                words.data_ptr(), bits.data_ptr(), nb, cap, nbh, nbw, ws,
+                segs.data_ptr(), seg_bits.data_ptr(),
+                torch.cuda.current_stream(words.device).cuda_stream)
+            if err:
+                raise RuntimeError(f"K8 {label}: cudaError {err}")
+            return segs, seg_bits
+
+        built[label] = merge
+    return built
+
+
 def equal(a, b) -> bool:
     if isinstance(a, (tuple, list)):
         return all(equal(x, y) for x, y in zip(a, b))
@@ -397,8 +527,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--kernels", default="k1-k4,k5,k7,k9,k10",
-                    help="comma-separated groups: k1-k4, k5, k7, k9, k10")
+    ap.add_argument("--kernels", default="k1-k4,k5,k7,k8,k9,k10",
+                    help="comma-separated groups: k1-k4, k5, k7, k8, k9, "
+                         "k10")
     args = ap.parse_args()
     groups = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -427,6 +558,9 @@ def main() -> int:
     words_k5 = load_word_parallel_k5()
     k9_builds = (load_k9_threads((128, 256, 512, 1024)) if "k9" in groups
                  else {})
+    (words_k8, words_k8_per_sm, fill_k8, count_fill_k8,
+     k8_ptxas) = load_word_parallel_k8()
+    k8_builds = load_k8_shapes() if "k8" in groups else {}
     say(phase="build", seconds=time.perf_counter() - t0)
     say(phase="blocks_per_sm", threads=128, caps=list(CAPS),
         encode_blocks=_build.query("pack", "encode_blocks_per_sm", ()),
@@ -440,7 +574,13 @@ def main() -> int:
         merge_mcu={c: _build.query("merge", "merge_mcu_per_sm",
                                    (ctypes.c_int,), c) for c in CAPS},
         merge_mcu_zeros_first=staged_k5_per_sm(),
-        merge_mcu_staged_ptxas=k5_ptxas)
+        merge_mcu_staged_ptxas=k5_ptxas,
+        merge_rows={f"ws{ws}_cap{c}": _build.query(
+            "concat", "merge_rows_per_sm", (ctypes.c_int, ctypes.c_int), ws,
+            c) for ws, c in cs.K8_WIDTH_CAPS},
+        merge_rows_word_parallel={f"ws{ws}_cap{c}": words_k8_per_sm(ws, c)
+                                  for ws, c in cs.K8_WIDTH_CAPS},
+        merge_rows_word_parallel_ptxas=k8_ptxas)
     dev = torch.device("cuda")
 
     def ab(kernel, path, other, this):
@@ -817,6 +957,117 @@ def main() -> int:
                *k5_streams_of(noise, h // 16, w // 16, quality=100, cap=cap),
                h // 16, w // 16, sweep=False)
 
+    def k8(path, words, bits, nbh, nbw, ws=128, sweep=False):
+        """K8 before / after beside the word-parallel design (turns: other,
+        this, words, words, this, other), outputs equal; the fill floor
+        of its segs buffer (torch.zeros and 16-byte stores alone) and its
+        byte bound; with sweep, this K8 built with other constants."""
+        cap = int(words.shape[0])
+        fns = {"other": lambda: oconcat.merge_rows(words, bits, nbh, nbw,
+                                                   ws),
+               "this": lambda: concat.merge_rows(words, bits, nbh, nbw, ws),
+               "words": lambda: words_k8(words, bits, nbh, nbw, ws)}
+        want = fns["this"]()
+        same = all(equal(f(), want) for f in fns.values())
+        order = ("other", "this", "words", "words", "this", "other")
+        t = [cs.time_ms(fns[k]) for k in order]
+        segs, scratch = want[0], torch.empty_like(want[0])
+        scratch_bits = torch.empty_like(want[1])
+        valid = int(((bits.long().clamp(max=cap * 32) + 31) // 32).sum())
+        nbytes = (valid * 4 + bits.numel() * 4 + segs.numel() * 4
+                  + segs.shape[0] * 4)
+        say(kernel="K8", path=path, equal=bool(same), ws=ws, cap=cap,
+            segments=int(segs.shape[0]), segment_words=int(segs.shape[1]),
+            segs_bytes=segs.numel() * 4, before_ms=[t[0], t[5]],
+            after_ms=[t[1], t[4]], word_parallel_ms=[t[2], t[3]],
+            bound_ms=nbytes / cs.HBM_BYTES_PER_S * 1e3,
+            fill_torch_zeros_ms=cs.time_ms(lambda: torch.zeros_like(segs)),
+            fill_store_only_ms=cs.time_ms(lambda: fill_k8(scratch)),
+            fill_after_counts_ms=cs.time_ms(lambda: count_fill_k8(
+                bits, nbh, nbw, ws, scratch, scratch_bits)))
+        del scratch, scratch_bits
+        if not same:
+            raise SystemExit(f"K8 {path}: outputs differ")
+        if not sweep:
+            return
+        ms = {}
+        for label, merge_at in k8_builds.items():
+            if not equal(merge_at(words, bits, nbh, nbw, ws), want):
+                raise SystemExit(f"K8 {path} {label}: outputs differ")
+            ms[label] = cs.time_ms(
+                lambda m=merge_at: m(words, bits, nbh, nbw, ws))
+        ms["shipped"] = cs.time_ms(fns["this"])
+        say(kernel="K8 constants", path=path, ms=ms,
+            best=min(ms, key=ms.get), shipped=K8_SHIPPED)
+
+    def mcu_stack(rgb, nmch, nmcw, seg_mcus=0, quality=50, cap=8,
+                  int_mode=False):
+        st = tables.encoder_state(EncodeConfig(subsampling="420",
+                                               quality=quality), dev)
+        ly = transform.transform_rgb_y(rgb, st, int_mode)
+        lc = transform.transform_rgb_chroma(rgb, st, int_mode, "420")
+        dcd = color_pipeline.color_dc_differences(ly, lc, nmch, nmcw, "420",
+                                                  seg_mcus)
+        mw, mb, _ = color_pipeline.mcu_streams(ly, lc, dcd, st, nmch, nmcw,
+                                               "420", cap)
+        return mw, mb
+
+    def k8_all():
+        st = tables.encoder_state(EncodeConfig(), dev)
+        for h, w, tag in ((cs.H, cs.W, ""), (cs.BIG_H, cs.BIG_W, "8k_")):
+            lv = transform.transform(
+                torch.from_numpy(cs.make_image(h, w)).to(dev), st, False)
+            words, bits = pack.encode_blocks(lv, dc_differences(lv[0]),
+                                             st.huff, 8)
+            nbh, nbw = h // 8, w // 8
+            k8(f"{tag}gray", words, bits, nbh, nbw, sweep=True)
+            if not tag:  # the staged entropy path: one row of blocks
+                k8("gray_staged_one_row", words, bits, 1, nbh * nbw)
+            rgb = torch.from_numpy(cs.make_color_image(h, w)).to(dev)
+            k8(f"{tag}420", *mcu_stack(rgb, h // 16, w // 16), h // 16,
+               w // 16, sweep=not tag)
+            del lv, words, bits, rgb
+        n, bh, bw = cs.BATCH_N, cs.BATCH_H, cs.BATCH_W
+        x = cs.batch_images_on_card(n, bh, bw, False, seed=42)
+        lv = transform.transform(x.reshape(n * bh, bw), st, False)
+        del x
+        nbh, nbw = bh // 8, bw // 8
+        words, bits = pack.encode_blocks(
+            lv, dc_differences(lv[0], nbh * nbw), st.huff, 8)
+        del lv
+        k8("batch_gray", words, bits, n * nbh, nbw, batch.segment_width(nbw),
+           sweep=True)
+        del words, bits
+        x = cs.batch_images_on_card(n, bh, bw, True, seed=42)
+        nbh, nbw = bh // 16, bw // 16
+        streams = mcu_stack(x.reshape(n * bh, bw, 3), n * nbh, nbw,
+                            nbh * nbw)
+        del x
+        k8("batch_420", *streams, n * nbh, nbw, batch.segment_width(nbw),
+           sweep=True)
+        del streams
+        # the K6 route's 16 x 3024 x 4032 4:2:0 stack (K6's streams equal
+        # K5's, chip_smoke.py batch_k6)
+        n, h, w = cs.K6_N, cs.H, cs.W
+        x = cs.batch_images_on_card(n, h, w, True, seed=42)
+        nmch, nmcw = h // 16, w // 16
+        streams = mcu_stack(x.reshape(n * h, w, 3), n * nmch, nmcw,
+                            nmch * nmcw)
+        del x
+        k8("batch_k6_route", *streams, n * nmch, nmcw,
+           batch.segment_width(nmcw))
+        del streams
+        torch.cuda.empty_cache()
+        # the Q100 noise ladder's rungs 16 and 53: 96- and 318-word MCUs
+        noise = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+        for cap in (16, 53):
+            k8(f"420_q100_noise_cap{cap}",
+               *mcu_stack(noise, nmch, nmcw, quality=100, cap=cap,
+                          int_mode=True), nmch, nmcw, sweep=cap == 53)
+
+    if "k8" in groups:
+        k8_all()
     if "k5" in groups:
         k5_all()
     if "k9" in groups:
