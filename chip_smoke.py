@@ -23,7 +23,17 @@ staged levels -> scan entry point (encode_scan_device(fused=False): K7);
 the configs that once failed (first rungs past K8's shared memory,
 dct_dtype float64 / float16, stuff="device"); and the color batch of 16
 images of 3024 x 4032 at 4:2:0, which merges its MCU streams by
-jpegtpu's slot-major route: K2, K3, K4, a gather, K6, K8, K11.
+jpegtpu's slot-major route: K2, K3, K4, a gather, K6, K8, K11. Then the
+paths that run those kernels in new ways: serving (encode_stream of 16
+distinct 3024 x 4032 images, gray and 4:2:0, at depths 1, 2 and 3: no
+host sync in submit, files equal to single encodes, MPix/s, the card's
+busy share, stage tables, an overflowing image's fallback); sharded
+(3024 x 4032 gray and 4:2:0 on 4 shards of the card, 1- and 2-pass: K12
+per shard, int32 files equal to the CPU path); multiprocess (two
+processes on the card over gloo, one shard each, started as
+`chip_smoke.py --worker PORT RANK DIR`: K8 + K11, K6 for 4:2:0, files
+equal to one process); and batch_mesh (1024 x 512 x 512 gray on a mesh
+of the card twice, files equal to no mesh).
 Every source is built anew; the build line lists each kernel's registers,
 spills and shared memory, and the run fails if a kernel of transform.cu,
 pack.cu, merge.cu or concat.cu (K1-K11) spills. Right after the build,
@@ -94,7 +104,7 @@ K6_N = 16  # 3024 x 4032 images of the batch K6 phase
 K6_RUNG16_N = 64  # 512 x 512 images of its rung-16 check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-REPS = 20
+REPS = 10
 # sources whose kernels must build without spill stores (K1-K11)
 NO_SPILL_SOURCES = ("transform", "pack", "merge", "concat")
 # K10's segment counts at 8K, cap 8: gray (4,320 row segments of 128
@@ -390,7 +400,7 @@ def k5_check_and_spec(name: str, wy, by, wc, bc, nmch: int, nmcw: int):
 
 def wrapper_launches(say) -> None:
     """One call each of K12's, K11's, K10's, K9's, K8's, K7's and K5's
-    wrappers in one torch.profiler session (the run's only one): the device kernels
+    wrappers in one torch.profiler session: the device kernels
     each launched, and their device microseconds, from key_averages().
     K12 runs on 190,512 seeded streams of 8 words at interval 504 (the
     3024 x 4032 gray restart grid), K11 on 64 images of the gray batch's
@@ -2060,6 +2070,627 @@ def batch_k6_phases(dev, say) -> list:
     return entries
 
 
+SERVE_N = 16  # distinct 3024 x 4032 images of each serving stream
+SHARDS = 4  # shards of the single-process sharded encodes, one card
+MESH_N = 2  # devices of the batch mesh (the card twice)
+WORKER_TIMEOUT_S = 600
+
+
+def strip_sof(data: bytes) -> bytes:
+    """A JFIF file without its SOF0 segment (frame dims), to hold a sharded
+    file against a single-image encode of the shard-padded image."""
+    i = data.index(b"\xff\xc0")
+    return data[:i] + data[i + 2 + int.from_bytes(data[i + 2:i + 4], "big"):]
+
+
+def chain_entries(path: str, x: torch.Tensor, cfg, launches: dict, say, *,
+                  join: str, seg_len: int = 0, rows=None, k6: bool = False,
+                  huffs=None) -> list:
+    """One unit of a path (an image, a shard's band, a batch share) through
+    the path's kernel chain on the card, each kernel against its plain
+    version on the same inputs, then timed beside its bound: K1 (gray) or
+    K2 + K3 (4:2:0); DC chains reset every seg_len blocks (MCUs); K4
+    (runtime tables `huffs` in 2-pass); K5, or the slot-major gather + K6
+    (k6); then the join: "k9" (K8 + K9 and the tail pad), "k12" (the
+    restart stitch at seg_len) or "k11" (K8 at the rows' segment width +
+    K11; rows = (grid rows, grid cols, images)). launches: the path's run.
+    Returns the kernel entries."""
+    color = cfg.n_components == 3
+    cap = cfg.capacity_words_per_block
+    state = tables.encoder_state(cfg, x.device)
+    if huffs is not None:
+        state = state._replace(huff=huffs[0], huff_chroma=huffs[-1])
+    h, w = x.shape[:2]
+    tab = 3 * 64 * 4  # quant + both bases
+    results, specs = {}, []
+    if color:
+        nbh, nbw = h // 16, w // 16
+        n = nbh * nbw
+        ny, nc = 4 * n, 2 * n
+        ly = transform.transform_rgb_y(x, state, False)
+        results["transform_rgb_y"] = float_close(
+            f"K2 {path}", ly, transform.transform_rgb_y_plain(x, state, False))
+        lc = transform.transform_rgb_chroma(x, state, False, "420")
+        results["transform_rgb_chroma"] = float_close(
+            f"K3 {path}", lc,
+            transform.transform_rgb_chroma_plain(x, state, False, "420"))
+        specs += [
+            ("transform_rgb_y", "jpegtpu_torch/csrc/transform.cu",
+             "jpegtpu/ops/pallas_transform.py:464",
+             lambda: transform.transform_rgb_y(x, state, False),
+             lambda: transform.transform_rgb_y_plain(x, state, False),
+             h * w * 3 + 64 * ny * 4 + tab, ny * 2 * 1024),
+            ("transform_rgb_chroma", "jpegtpu_torch/csrc/transform.cu",
+             "jpegtpu/ops/pallas_transform.py:505",
+             lambda: transform.transform_rgb_chroma(x, state, False, "420"),
+             lambda: transform.transform_rgb_chroma_plain(x, state, False,
+                                                          "420"),
+             h * w * 3 + 64 * nc * 4 + tab, nc * 2 * 1024)]
+        dcd = color_pipeline.color_dc_differences(ly, lc, nbh, nbw, "420",
+                                                  seg_len)
+        pairs = [(ly, dcd[0], state.huff), (lc, dcd[1], state.huff_chroma)]
+    else:
+        nbh, nbw = h // 8, w // 8
+        n = nbh * nbw
+        lv = transform.transform(x, state, False)
+        results["transform"] = float_close(
+            f"K1 {path}", lv, transform.transform_plain(x, state, False))
+        specs.append(("transform", "jpegtpu_torch/csrc/transform.cu",
+                      "jpegtpu/ops/pallas_transform.py:255",
+                      lambda: transform.transform(x, state, False),
+                      lambda: transform.transform_plain(x, state, False),
+                      h * w + 64 * n * 4 + tab, n * 2 * 1024))
+        pairs = [(lv, dc_differences(lv[0], seg_len), state.huff)]
+    blocks = [pack.encode_blocks(lev, d, t, cap) for lev, d, t in pairs]
+    for (lev, d, t), got in zip(pairs, blocks):
+        results["encode_blocks"] = equal_streams(
+            f"K4 {path}", got, pack.encode_blocks_plain(lev, d, t, cap))
+    nbk = sum(lev.shape[1] for lev, _, _ in pairs)
+    check(int(torch.cat([b for _, b in blocks]).max()) <= cap * 32,
+          f"{path}: overflowed cap {cap}")
+    specs.append((
+        "encode_blocks", "jpegtpu_torch/csrc/pack.cu",
+        "jpegtpu/entropy/pallas_pack.py:"
+        + ("237" if huffs is not None else "560"),
+        lambda: [pack.encode_blocks(lev, d, t, cap) for lev, d, t in pairs],
+        lambda: [pack.encode_blocks_plain(lev, d, t, cap)
+                 for lev, d, t in pairs],
+        64 * nbk * 4 + nbk * 4 + len(pairs) * tables.HUFF_SIZE * 4
+        + cap * nbk * 4 + nbk * 4, 64 * nbk))
+    if not color:
+        words, bits = blocks[0]
+    elif k6:
+        (wy, by), (wc, bc) = blocks
+        sw, sb = merge.slot_major_streams(wy, by, wc, bc, nbh, nbw, "420")
+        words, bits = merge.merge_streams(sw, sb)
+        results["merge_streams"] = equal_streams(
+            f"K6 {path}", (words, bits), merge.merge_streams_plain(sw, sb))
+        e = sw.shape[0]
+        valid = int(((sb.long().clamp(max=cap * 32) + 31) // 32).sum())
+        specs.append(("merge_streams", "jpegtpu_torch/csrc/merge.cu",
+                      "jpegtpu/entropy/pallas_pack.py:683",
+                      lambda: merge.merge_streams(sw, sb),
+                      lambda: merge.merge_streams_plain(sw, sb),
+                      valid * 4 + e * n * 4 + e * cap * n * 4 + n * 4,
+                      valid * 2))
+    else:
+        (wy, by), (wc, bc) = blocks
+        results["merge_mcu"], k5_spec = k5_check_and_spec(
+            f"K5 {path}", wy, by, wc, bc, nbh, nbw)
+        specs.append(k5_spec)
+        words, bits = merge.merge_mcu(wy, by, wc, bc, nbh, nbw, "420")
+    c = words.shape[0]
+    valid_words = int(((bits.long() + 31) // 32).sum())
+    if join == "k12":
+        got = stitch.stitch_segments(words, bits, seg_len, cfg.pad_ones)
+        results["stitch_segments"] = equal_streams(
+            f"K12 {path}", (got[0], got[1], got[2].reshape(1)),
+            [t.reshape(-1) for t in stitch.stitch_segments_plain(
+                words, bits, seg_len, cfg.pad_ones)])
+        inputs = valid_words * 4 + bits.numel() * 4 + got[1].numel() * 4
+        specs.append(("stitch_segments", "jpegtpu_torch/csrc/stitch.cu",
+                      "jpegtpu/entropy/pallas_concat.py:553",
+                      lambda: stitch.stitch_segments(words, bits, seg_len,
+                                                     cfg.pad_ones),
+                      lambda: stitch.stitch_segments_plain(
+                          words, bits, seg_len, cfg.pad_ones),
+                      inputs + (int(got[2]) + 31) // 32 * 4,
+                      valid_words * 2,
+                      {"launches_scan": launches["stitch_scan"]}))
+    else:
+        r, cols, n_images = (nbh, nbw, 1) if join == "k9" else rows
+        ws = 128 if join == "k9" else concat.segment_width(cols)
+        segs, sbits = concat.merge_rows(words, bits, r, cols, ws)
+        results["merge_rows"] = equal_streams(
+            f"K8 {path}", (segs, sbits),
+            concat.merge_rows_plain(words, bits, r, cols, ws))
+        nseg, seg_words = segs.shape
+        specs.append(("merge_rows", "jpegtpu_torch/csrc/concat.cu",
+                      "jpegtpu/entropy/pallas_concat.py:240",
+                      lambda: concat.merge_rows(words, bits, r, cols, ws),
+                      lambda: concat.merge_rows_plain(words, bits, r, cols,
+                                                      ws),
+                      valid_words * 4 + n * 4 + nseg * seg_words * 4
+                      + nseg * 4, valid_words * 2))
+        if join == "k9":
+            results["stream_concat"], k9_spec = k9_check_and_spec(
+                f"K9 {path}", segs, sbits, concat.stream_words(n, c),
+                cfg.pad_ones)
+            specs.append(k9_spec)
+        else:
+            args = (segs, sbits, nseg // n_images, n // n_images * c,
+                    cfg.pad_ones)
+            results["stream_concat_rows"] = equal_streams(
+                f"K11 {path}", concat.stream_concat_rows(*args),
+                concat.stream_concat_rows_plain(*args))
+            valid_seg = int(((sbits.long() + 31) // 32).sum())
+            specs.append(("stream_concat_rows", "jpegtpu_torch/csrc/concat.cu",
+                          "jpegtpu/entropy/pallas_concat.py:412",
+                          lambda: concat.stream_concat_rows(*args),
+                          lambda: concat.stream_concat_rows_plain(*args),
+                          valid_seg * 4 + nseg * 4 + n * c * 4
+                          + n_images * 8, valid_seg * 2))
+    say(f"{path}_kernels_vs_plain", shape=list(x.shape), **results)
+    return time_kernels(specs, launches, results, path, list(x.shape), say)
+
+
+def reset_launches() -> None:
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+
+
+def device_busy(fn) -> dict:
+    """One call of fn under torch.profiler: its wall seconds and the share
+    of them the card spent in kernels and in kernels plus copies (the sum
+    of their device times over the wall time; the profiler's own cost is
+    in the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = [(e.key, e.device_time_total) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:  # the profiler itself failed on this machine
+        return {"profiler_error": repr(e)}
+    if not ev:
+        return {"note": "the profiler shows no device events"}
+    copies = sum(us for k, us in ev if "Memcpy" in k or "Memset" in k)
+    kernels = sum(us for _, us in ev) - copies
+    return {"wall_s": wall, "kernel_ms": kernels / 1e3,
+            "copy_ms": copies / 1e3,
+            "busy_share_kernels": kernels / 1e6 / wall,
+            "busy_share_kernels_and_copies": (kernels + copies) / 1e6 / wall}
+
+
+def serving_stage_breakdown(images, cfg, color: bool, depth: int,
+                            split_pad: bool) -> dict:
+    """Host-clock milliseconds of a serving stream's stages, summed over
+    its images, with encode_stream's loop written out: submit (its
+    edge-pad into pinned memory apart, split over the server's copying
+    threads as encode_stream does, or on the loop's thread), and finish's
+    wait for the head, read of the valid words, stuffing and JFIF join;
+    and the wall. No synchronize between stages: the card runs while the
+    host works."""
+    from collections import deque
+
+    from jpegtpu_torch import serving
+    st = dict.fromkeys(("submit_pad_into_pinned", "submit_queue",
+                        "finish_wait_head", "finish_d2h_valid_words",
+                        "finish_host_stuff", "finish_host_jfif"), 0.0)
+    pad_into = serving.pad_into
+
+    def timed_pad(dst, image, pool=None):
+        t = time.perf_counter()
+        pad_into(dst, image, pool)
+        st["submit_pad_into_pinned"] += time.perf_counter() - t
+
+    def finish(pend, image):
+        t = time.perf_counter()
+        pend["done"].synchronize()
+        overflowed, count = pend["head"].tolist()
+        check(not overflowed, "serving stages: overflowed rung 8")
+        t = tick("finish_wait_head", t)
+        server.reader.wait_event(pend["done"])
+        with torch.cuda.stream(server.reader):
+            words = pend["stream"][:(count + 31) // 32].cpu().numpy()
+        t = tick("finish_d2h_valid_words", t)
+        scan = pipeline.segments_from_streams(words.view(np.uint32)[None],
+                                              [count])[0]
+        t = tick("finish_host_stuff", t)
+        pipeline.jfif.assemble(pend["w"], pend["h"], cfg, [scan])
+        tick("finish_host_jfif", t)
+
+    def tick(name, t):
+        now = time.perf_counter()
+        st[name] += now - t
+        return now
+
+    server = serving._Server(cfg, color, depth, torch.device("cuda"))
+    if not split_pad:
+        server.copiers.shutdown()
+        server.copiers = None
+    serving.pad_into = timed_pad
+    try:
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        queue = deque()
+        for image in images:
+            t = time.perf_counter()
+            queue.append((server.submit(image), image))
+            tick("submit_queue", t)
+            if len(queue) >= depth:
+                finish(*queue.popleft())
+        while queue:
+            finish(*queue.popleft())
+        wall = time.perf_counter() - t_all
+    finally:
+        serving.pad_into = pad_into
+        server.close()
+    st["submit_queue"] -= st["submit_pad_into_pinned"]
+    return {**{k: v * 1e3 for k, v in st.items()}, "wall": wall * 1e3,
+            "images": len(images)}
+
+
+def serving_phases(dev, say) -> list:
+    """encode_stream (M6) on streams of SERVE_N distinct 3024 x 4032
+    images, gray and 4:2:0: submit queues no host sync (torch's sync
+    debug mode set to error around it), every file equal to its
+    single-image encode at depths 1, 2 and 3, MPix/s and wall ms of each
+    depth in turns, the card's busy share at each depth (torch.profiler),
+    an overflowing image's fallback and the history it leaves, and the
+    path's kernels against their plain versions and timed. Returns the
+    kernel entries."""
+    from jpegtpu_torch import serving
+    entries = []
+    for kind, color in (("gray", False), ("420", True)):
+        cfg = EncodeConfig(subsampling="420") if color else EncodeConfig()
+        path = f"serving_{kind}"
+        images = list(batch_images(SERVE_N, H, W, color, seed=50 + color))
+        enc = (color_pipeline.encode_color if color
+               else pipeline.encode_grayscale)
+        singles = [enc(im, cfg) for im in images]
+        # no host sync inside submit
+        server = serving._Server(cfg, color, 2, dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pends = [server.submit(im) for im in images[:2]]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check([server.finish(p, im) for p, im in zip(pends, images)]
+              == singles[:2], f"{path}: submit / finish bytes != single")
+        walls = {1: [], 2: [], 3: []}
+        launches = None
+        for rep in range(3):
+            for depth in (1, 2, 3):
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                files = serving.encode_stream_list(images, cfg, color=color,
+                                                   depth=depth)
+                walls[depth].append(time.perf_counter() - t0)
+                check(files == singles,
+                      f"{path} depth {depth}: a file != its single encode")
+                if depth == 2 and rep == 0:
+                    launches = dict(_build.LAUNCHES)
+        mpix = SERVE_N * H * W / 1e6
+        say(f"{path}_end_to_end", shape=[SERVE_N, H, W] + ([3] if color
+                                                            else []),
+            files_equal_single_image=SERVE_N, launches_depth2=launches,
+            **{f"depth{d}": {"wall_ms": [s * 1e3 for s in v],
+                             "median_ms": float(np.median(v)) * 1e3,
+                             "mpix_per_s": mpix / float(np.median(v))}
+               for d, v in walls.items()})
+        say(f"{path}_device_busy", **{
+            f"depth{d}": device_busy(lambda d=d: serving.encode_stream_list(
+                images, cfg, color=color, depth=d)) for d in (1, 2, 3)})
+        # the loop's stages, its pad copy split or not, in turns;
+        # medians of 3
+        runs = {}
+        for _ in range(3):
+            for split_pad in (False, True):
+                for depth in (1, 2):
+                    runs.setdefault((split_pad, depth), []).append(
+                        serving_stage_breakdown(images, cfg, color, depth,
+                                                split_pad))
+        for (split_pad, depth), rs in runs.items():
+            say(f"{path}_stage_breakdown_ms", depth=depth,
+                pad_split_over_threads=split_pad,
+                runs=len(rs), **{k: float(np.median([r[k] for r in rs]))
+                                 for k in rs[0]})
+        # a Q100 noise image past rung 8 in a stream: the blocking ladder
+        # for it, then its site's next submission at the rung that fit
+        cfg100 = dataclasses.replace(cfg, quality=100)
+        shape = (LADDER_H, LADDER_W) + ((3,) if color else ())
+        noise = [np.random.default_rng(s).integers(0, 256, shape,
+                                                   dtype=np.uint8)
+                 for s in (60, 61)]
+        flat = np.full(shape, 90, np.uint8)
+        key = ((LADDER_H, LADDER_W, cfg100, "color") if color
+               else (LADDER_H // 8, LADDER_W // 8, cfg100, False))
+        pipeline._cap_history.pop(key, None)
+        mixed = [flat, noise[0], flat, noise[1]]
+        got = serving.encode_stream_list(mixed, cfg100, color=color,
+                                         depth=1)
+        fit = pipeline._cap_history.get(key, [0])[0]
+        check(got == [enc(im, cfg100) for im in mixed] and fit > 8,
+              f"{path}: overflow fallback (rung {fit})")
+        say(f"{path}_overflow_fallback", shape=list(shape), quality=100,
+            rung_learned=fit)
+        entries += chain_entries(
+            path, torch.from_numpy(images[0]).to(dev), cfg, launches, say,
+            join="k9")
+        del images, singles
+    return entries
+
+
+def sharded_phases(dev, say) -> list:
+    """encode_grayscale_sharded / encode_color_sharded (M7) at 3024 x 4032
+    on SHARDS shards of the one card, 1- and 2-pass: the stitched route
+    (K12 per shard) launched, the file equal to the single-image restart
+    encode of the shard-padded image on the card (frame dims aside), int32
+    files equal to the port's CPU path, end-to-end ms, and the first
+    shard's kernels against their plain versions and timed. Returns the
+    kernel entries."""
+    from jpegtpu_torch.parallel import sharding
+    mesh = sharding.make_mesh(SHARDS, devices=[dev] * SHARDS)
+    entries = []
+    for kind, color in (("gray", False), ("420", True)):
+        img = make_color_image(H, W) if color else make_image(H, W)
+        enc = (color_pipeline.encode_color_sharded if color
+               else sharding.encode_grayscale_sharded)
+        single = (color_pipeline.encode_color if color
+                  else pipeline.encode_grayscale)
+        mh = 16 if color else 8
+        ph = -(-H // (mh * SHARDS)) * mh * SHARDS
+        rows, cols = ph // SHARDS // mh, W // mh
+        seg = sharding.restart_subsegments(rows, cols)
+        padded = np.pad(img, [(0, ph - H), (0, 0)] + [(0, 0)] * color,
+                        mode="edge")
+        for two_pass in (False, True):
+            cfg = EncodeConfig(subsampling="420" if color else "gray",
+                               optimize_huffman=two_pass)
+            path = f"sharded_{kind}" + ("_2pass" if two_pass else "")
+            enc(img, cfg, mesh=mesh)
+            reset_launches()
+            t0 = time.perf_counter()
+            data = enc(img, cfg, mesh=mesh)
+            first_s = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            r = launches["stitch_segments"] // SHARDS  # rungs climbed
+            fronts = (("transform_rgb_y", "transform_rgb_chroma") if color
+                      else ("transform",))
+            check(r >= 1 and all(launches[k] == SHARDS for k in fronts)
+                  and launches["stitch_scan"] == SHARDS * r
+                  and launches["stitch_segments"] == SHARDS * r
+                  and launches["encode_blocks"] == SHARDS * r * (1 + color)
+                  and launches["merge_mcu"] == SHARDS * r * color
+                  and launches["merge_rows"] == 0
+                  and launches["stream_concat_rows"] == 0,
+                  f"{path}: launches {launches}")
+            restart = dataclasses.replace(cfg, restart_interval=seg)
+            check(strip_sof(data) == strip_sof(single(padded, restart)),
+                  f"{path}: != the single-image restart encode")
+            runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                enc(img, cfg, mesh=mesh)
+                runs.append(time.perf_counter() - t0)
+            cfg_int = dataclasses.replace(cfg, dct_dtype="int32")
+            t0 = time.perf_counter()
+            check(enc(img, cfg_int, mesh=mesh)
+                  == enc(img, cfg_int, mesh=["cpu"] * SHARDS),
+                  f"{path} int32: card bytes != CPU path")
+            cpu_s = time.perf_counter() - t0
+            say(f"{path}_end_to_end", shape=list(img.shape), shards=SHARDS,
+                restart_interval=seg, bytes=len(data), first_call_s=first_s,
+                runs_s=runs, median_s=float(np.median(runs)),
+                mpix_per_s=H * W / 1e6 / float(np.median(runs)),
+                launches=launches, int32_vs_cpu_s=cpu_s)
+            huffs = None
+            if two_pass:  # the sharded encode's tables, from all shards
+                counts = 0
+                for i in range(SHARDS):
+                    x = sharding.band(img, i, SHARDS, ph, W, dev)
+                    st = tables.encoder_state(cfg, dev)
+                    if color:
+                        ly = transform.transform_rgb_y(x, st, False)
+                        lc = transform.transform_rgb_chroma(x, st, False,
+                                                            "420")
+                        d = color_pipeline.color_dc_differences(
+                            ly, lc, rows, cols, "420", seg)
+                        counts = counts + symbol_histograms(ly, d[0], 0) \
+                            + symbol_histograms(lc, d[1], 1)
+                    else:
+                        lv = transform.transform(x, st, False)
+                        counts = counts + symbol_histograms(
+                            lv, dc_differences(lv[0], seg))
+                kinds = ("lum", "chrom") if color else ("lum",)
+                _, huffs = pipeline.optimal_tables(counts, kinds, dev)
+            entries += chain_entries(
+                path, sharding.band(img, 0, SHARDS, ph, W, dev), cfg, launches,
+                say, join="k12", seg_len=seg, huffs=huffs)
+    return entries
+
+
+def multiprocess_worker(port: str, rank: int, out_dir: str) -> int:
+    """One of multiprocess_phases' two processes: joins the gloo group,
+    encodes 3024 x 4032 gray and 4:2:0 on one shard a process (its
+    shard's kernels on this card), times it, writes the files, and prints
+    its launches (rank 0 also its shard's kernel entries) as JSON."""
+    from jpegtpu_torch.parallel import multihost, sharding
+    dev = torch.device("cuda:0")
+    multihost.initialize(f"tcp://localhost:{port}", world_size=2, rank=rank,
+                         timeout_s=WORKER_TIMEOUT_S)
+    mesh = multihost.global_mesh([dev])
+    lines = []
+    for kind, color in (("gray", False), ("420", True)):
+        img = make_color_image(H, W) if color else make_image(H, W)
+        enc = (color_pipeline.encode_color_sharded if color
+               else sharding.encode_grayscale_sharded)
+        cfg = EncodeConfig(subsampling="420") if color else EncodeConfig()
+        enc(img, cfg, mesh=mesh)
+        torch.distributed.barrier()
+        reset_launches()
+        data = enc(img, cfg, mesh=mesh)
+        launches = dict(_build.LAUNCHES)
+        runs = []
+        for _ in range(3):
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            enc(img, cfg, mesh=mesh)
+            runs.append(time.perf_counter() - t0)
+        with open(os.path.join(out_dir, f"{kind}.p{rank}"), "wb") as f:
+            f.write(data)
+        entries = []
+        if rank == 0:
+            mh = 16 if color else 8
+            ph = -(-H // (mh * 2)) * mh * 2
+            rows, cols = ph // 2 // mh, W // mh
+            seg = sharding.restart_subsegments(rows, cols)
+            k = rows * cols // seg
+            entries = chain_entries(
+                f"multiprocess_{kind}",
+                sharding.band(img, 0, 2, ph, W, dev), cfg,
+                launches, lambda *a, **kv: None, join="k11", seg_len=seg,
+                rows=(k, seg, k), k6=color and k == 1)
+        lines.append({"kind": kind, "rank": rank, "launches": launches,
+                      "runs_s": runs, "median_s": float(np.median(runs)),
+                      "entries": entries})
+    print("WORKER " + json.dumps(lines), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multiprocess_phases(dev, say) -> list:
+    """Two processes on the card (parallel.multihost over gloo, one shard
+    each, jpegtpu's per-segment route): both must exit 0 within
+    WORKER_TIMEOUT_S, and each file of each process must equal the
+    single-process sharded encode on a mesh of two. Reports each
+    process's launches (K6 for 4:2:0) and end-to-end ms; rank 0's shard
+    gives the kernel entries. Returns them."""
+    import socket
+    import tempfile
+    from jpegtpu_torch.parallel import sharding
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    out_dir = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(
+        __file__)), prefix=".multiprocess_")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "RANK", "WORLD_SIZE")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", port,
+         str(r), out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0 and "WORKER " in log,
+              f"multiprocess worker {r} failed (rc {p.returncode}):\n"
+              f"{log[-3000:]}")
+    reports = [json.loads(next(ln for ln in log.splitlines()
+                               if ln.startswith("WORKER "))[7:])
+               for log in logs]
+    mesh = sharding.make_mesh(2, devices=[dev] * 2)
+    entries = []
+    for kind, color in (("gray", False), ("420", True)):
+        img = make_color_image(H, W) if color else make_image(H, W)
+        enc = (color_pipeline.encode_color_sharded if color
+               else sharding.encode_grayscale_sharded)
+        cfg = EncodeConfig(subsampling="420") if color else EncodeConfig()
+        want = enc(img, cfg, mesh=mesh)
+        for r in (0, 1):
+            with open(os.path.join(out_dir, f"{kind}.p{r}"), "rb") as f:
+                check(f.read() == want,
+                      f"multiprocess {kind}: rank {r} != one process")
+        rep = [next(x for x in reports[r] if x["kind"] == kind)
+               for r in (0, 1)]
+        for r in (0, 1):
+            lc = rep[r]["launches"]
+            check(lc["encode_blocks"] == 1 + color
+                  and lc["merge_rows"] == 1 and lc["stream_concat_rows"] == 1
+                  and lc["merge_streams"] == int(color)
+                  and lc["stitch_segments"] == 0,
+                  f"multiprocess {kind} rank {r}: launches {lc}")
+        say(f"multiprocess_{kind}_end_to_end", shape=list(img.shape),
+            processes=2, files_equal_one_process=True,
+            launches=[x["launches"] for x in rep],
+            median_s=[x["median_s"] for x in rep],
+            runs_s=[x["runs_s"] for x in rep])
+        for e in rep[0]["entries"]:
+            say("kernel_time", **e)
+        entries += rep[0]["entries"]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return entries
+
+
+def batch_mesh_phases(dev, say) -> list:
+    """encode_grayscale_batch with a mesh of MESH_N (the card twice) on
+    1024 x 512 x 512 gray, 1- and 2-pass: every file equal to the batch
+    without a mesh, one launch of each kernel a share, end-to-end ms; the
+    first share's kernels against their plain versions and timed. Returns
+    the kernel entries."""
+    images = list(batch_images(BATCH_N, BATCH_H, BATCH_W, False, seed=42))
+    mesh = [dev] * MESH_N
+    entries = []
+    for two_pass in (False, True):
+        cfg = EncodeConfig(optimize_huffman=two_pass)
+        path = "batch_mesh_gray" + ("_2pass" if two_pass else "")
+        want = batch.encode_grayscale_batch(images, cfg)
+        reset_launches()
+        t0 = time.perf_counter()
+        files = batch.encode_grayscale_batch(images, cfg, mesh=mesh)
+        first_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        check(files == want, f"{path}: files != the batch without a mesh")
+        check(all(launches[k] == MESH_N for k in (
+            "transform", "encode_blocks", "merge_rows",
+            "stream_concat_rows")), f"{path}: launches {launches}")
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch.encode_grayscale_batch(images, cfg, mesh=mesh)
+            runs.append(time.perf_counter() - t0)
+        say(f"{path}_end_to_end", shape=[BATCH_N, BATCH_H, BATCH_W],
+            mesh=MESH_N, files_equal_no_mesh=BATCH_N, first_call_s=first_s,
+            runs_s=runs, median_s=float(np.median(runs)),
+            mpix_per_s=BATCH_N * BATCH_H * BATCH_W / 1e6
+            / float(np.median(runs)), launches=launches)
+        share = BATCH_N // MESH_N
+        x = torch.from_numpy(np.stack(images[:share])).to(dev).reshape(
+            share * BATCH_H, BATCH_W)
+        huffs = None
+        if two_pass:
+            counts = 0
+            for lo in range(0, BATCH_N, share):
+                xs = torch.from_numpy(np.stack(images[lo:lo + share])).to(
+                    dev).reshape(share * BATCH_H, BATCH_W)
+                lv = transform.transform(xs, tables.encoder_state(cfg, dev),
+                                         False)
+                counts = counts + symbol_histograms(
+                    lv, dc_differences(lv[0], (BATCH_H // 8) * (BATCH_W // 8)))
+            _, huffs = pipeline.optimal_tables(counts, ("lum",), dev)
+        entries += chain_entries(
+            path, x, cfg, launches, say, join="k11",
+            seg_len=(BATCH_H // 8) * (BATCH_W // 8),
+            rows=(share * BATCH_H // 8, BATCH_W // 8, share), huffs=huffs)
+        del x
+    del images
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2240,6 +2871,10 @@ def main() -> int:
     kernels += staged_entropy_phases(dev, say)
     repaired_config_phases(dev, say)
     kernels += batch_k6_phases(dev, say)
+    kernels += serving_phases(dev, say)
+    kernels += sharded_phases(dev, say)
+    kernels += multiprocess_phases(dev, say)
+    kernels += batch_mesh_phases(dev, say)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2250,6 +2885,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--worker"]:  # one of multiprocess_phases'
+            sys.exit(multiprocess_worker(sys.argv[2], int(sys.argv[3]),
+                                         sys.argv[4]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

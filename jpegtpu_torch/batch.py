@@ -50,7 +50,7 @@ from . import tables
 from .color_pipeline import (color_dc_differences, color_tables, encode_color,
                              mcu_streams, mcu_streams_slot_major)
 from .config import EncodeConfig
-from .entropy.concat import LANES, concat_segments
+from .entropy.concat import LANES, concat_segments, segment_width
 from .entropy.device import dc_differences, symbol_histograms
 from .entropy.pack import encode_blocks
 from .io import jfif
@@ -65,16 +65,6 @@ from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
 # jpegtpu's transform tile height in pixels (pallas_transform.TILE_H), which
 # its table-sharing rule counts in.
 _TILE_H = 64
-
-
-def segment_width(nbw: int) -> int:
-    """K8's segment width for a batch whose rows hold nbw blocks (or
-    MCUs): jpegtpu's slot width (_slot_geom), the power of two >= 16 that
-    holds a row of <= 64, else 128."""
-    ws = 16
-    while ws < nbw:
-        ws *= 2
-    return min(ws, LANES)
 
 
 def shares_gray_tables(ph: int, pw: int, cap: int) -> bool:
@@ -116,11 +106,8 @@ def color_raw_ok(ph: int, pw: int, subsampling: str, cap: int) -> bool:
 
 
 def _prepare(images, config: EncodeConfig, mesh, n_components: int,
-             device) -> torch.device:
-    if mesh is not None:
-        raise NotImplementedError(
-            "batch sharding across devices (mesh) is not ported yet "
-            "(ROADMAP.md M7, multi-GPU)")
+             device) -> list:
+    """Check the batch; returns its devices: the mesh's, or [device]."""
     if config.n_components != n_components:
         raise ValueError(
             f"subsampling={config.subsampling!r} does not fit this batch "
@@ -128,7 +115,25 @@ def _prepare(images, config: EncodeConfig, mesh, n_components: int,
             "encode_color_batch")
     for image in images:
         _check_image(image)
-    return resolve_device(device)
+    if mesh is not None:
+        return [resolve_device(d) for d in mesh]
+    return [resolve_device(device)]
+
+
+def _shares(n_images: int, devs: list, nbw: int) -> list:
+    """A group's images across the mesh, as jpegtpu splits its batch axis:
+    the group padded to a power of two, then to a multiple of
+    r * len(devs) (r: the images jpegtpu packs side by side, rows of nbw
+    blocks or MCUs), in equal contiguous shares; (device, first, stop)
+    for every device whose share holds an image. The split changes no
+    byte."""
+    m = len(devs)
+    if m == 1:
+        return [(devs[0], 0, n_images)]
+    unit = LANES // segment_width(nbw) * m
+    local = -(-(1 << (n_images - 1).bit_length()) // unit) * unit // m
+    return [(dev, j * local, min((j + 1) * local, n_images))
+            for j, dev in enumerate(devs) if j * local < n_images]
 
 
 def _groups(images, key) -> dict:
@@ -139,63 +144,80 @@ def _groups(images, key) -> dict:
     return groups
 
 
-def _encode_stack(streams_at, caps, n_images: int, nbh: int, nbw: int,
-                  pad_ones: bool):
-    """The entropy finish of a stack of n_images images, each an nbh x nbw
-    grid of blocks (or MCUs): for each rung, streams_at(cap) -> (words
-    [C, n], bits [n], per-block overflow flags), then K8 + K11, one
-    readback of (any overflow, every image's total bits) and one of the
-    valid words of all images. Returns each image's stuffed scan, or None
-    when every rung overflowed."""
+def _encode_stacks(parts, caps, nbh: int, nbw: int, pad_ones: bool):
+    """The entropy finish of a group's stacks (one a device), each of
+    n_images images of an nbh x nbw grid of blocks (or MCUs): for each
+    rung, every part's streams_at(cap) -> (words [C, n], bits [n],
+    per-block overflow flags), then K8 + K11, one readback of (any
+    overflow, every image's total bits) and, once no part overflowed, one
+    of the valid words of all its images. parts: [(streams_at, n_images)].
+    Returns every image's stuffed scan, in order, or None when every rung
+    overflowed."""
     ws = segment_width(nbw)
     for cap in caps:
-        words, bits, overflow = streams_at(cap)
-        streams, totals = concat_segments(words, bits, n_images * nbh, nbw,
-                                          n_images, ws, pad_ones)
-        head = torch.cat([overflow.any().to(torch.int64).reshape(1),
-                          totals]).tolist()
-        if head[0]:
+        outs = []
+        for streams_at, n_images in parts:
+            words, bits, overflow = streams_at(cap)
+            streams, totals = concat_segments(words, bits, n_images * nbh,
+                                              nbw, n_images, ws, pad_ones)
+            outs.append((streams, torch.cat(
+                [overflow.any().to(torch.int64).reshape(1), totals])))
+        heads = [head.tolist() for _, head in outs]
+        if any(h[0] for h in heads):
             continue
-        nwords = (max(head[1:]) + 31) // 32
-        words_np = streams[:, :nwords].cpu().numpy().view(np.uint32)
-        return segments_from_streams(words_np, head[1:])
+        scans = []
+        for (streams, _), h in zip(outs, heads):
+            nwords = (max(h[1:]) + 31) // 32
+            words_np = streams[:, :nwords].cpu().numpy().view(np.uint32)
+            scans += segments_from_streams(words_np, h[1:])
+        return scans
     return None
 
 
 def _gray_group(images: list, ph: int, pw: int, config: EncodeConfig,
-                dev: torch.device) -> list:
+                devs: list) -> list:
     """One group of a gray batch (padded shape ph x pw, all [H, W] or all
-    RGB) -> its files in order."""
+    RGB) -> its files in order. Its images split across devs."""
     if config.optimize_huffman and not shares_gray_tables(ph, pw, 8):
-        return [encode_grayscale(image, config, device=dev)
+        return [encode_grayscale(image, config, device=devs[0])
                 for image in images]
-    stack = np.stack([pad_edge(image) for image in images])
-    b = len(images)
-    plane = torch.from_numpy(stack).to(dev).reshape(b * ph, *stack.shape[2:])
-    if plane.dim() == 3:
-        plane = color.rgb_to_y_reference(plane)
-    state = tables.encoder_state(config, dev)
-    levels = transform(plane.contiguous(), state, config.dct_dtype == "int32")
     nbh, nbw = ph // 8, pw // 8
-    dcd = dc_differences(levels[0], nbh * nbw)
-    huff, specs, caps = state.huff, None, capacity_ladder(config)
+    fronts = []
+    for dev, lo, hi in _shares(len(images), devs, nbw):
+        stack = np.stack([pad_edge(image) for image in images[lo:hi]])
+        plane = torch.from_numpy(stack).to(dev).reshape(
+            (hi - lo) * ph, *stack.shape[2:])
+        if plane.dim() == 3:
+            plane = color.rgb_to_y_reference(plane)
+        state = tables.encoder_state(config, dev)
+        levels = transform(plane.contiguous(), state,
+                           config.dct_dtype == "int32")
+        fronts.append((levels, dc_differences(levels[0], nbh * nbw),
+                       state.huff, hi - lo))
+    specs, caps = None, capacity_ladder(config)
     if config.optimize_huffman:
-        specs, (huff,) = optimal_tables(symbol_histograms(levels, dcd),
-                                        ("lum",), dev)
+        # one set of tables from the counts of every share
+        specs, (huff,) = optimal_tables(
+            sum(symbol_histograms(lv, d).cpu() for lv, d, _, _ in fronts),
+            ("lum",), "cpu")
+        fronts = [(lv, d, huff.to(lv.device), b) for lv, d, _, b in fronts]
         caps = itertools.takewhile(
             lambda cap: shares_gray_tables(ph, pw, cap), caps)
 
-    def streams_at(cap):
-        kcap = kernel_cap(cap)
-        words, bits = encode_blocks(levels, dcd, huff, kcap)
-        return words, bits, bits > kcap * 32
+    def part(levels, dcd, huff):
+        def streams_at(cap):
+            kcap = kernel_cap(cap)
+            words, bits = encode_blocks(levels, dcd, huff, kcap)
+            return words, bits, bits > kcap * 32
+        return streams_at
 
-    scans = _encode_stack(streams_at, caps, b, nbh, nbw, config.pad_ones)
+    scans = _encode_stacks([(part(lv, d, hf), b) for lv, d, hf, b in fronts],
+                           caps, nbh, nbw, config.pad_ones)
     if scans is None:
         if not config.optimize_huffman:
             raise RuntimeError("worst-case entropy capacity overflowed (bug)")
         # past the shared rungs jpegtpu gives each image its own tables
-        return [encode_grayscale(image, config, device=dev)
+        return [encode_grayscale(image, config, device=devs[0])
                 for image in images]
     return [jfif.assemble(image.shape[1], image.shape[0], config, [scan],
                           huffman_specs=specs)
@@ -203,45 +225,60 @@ def _gray_group(images: list, ph: int, pw: int, config: EncodeConfig,
 
 
 def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
-                 dev: torch.device) -> list:
+                 devs: list) -> list:
     """One group of a color batch (MCU-padded shape ph x pw) -> its files
-    in order."""
+    in order. Its images split across devs."""
     ss = config.subsampling
     if config.optimize_huffman and not color_raw_ok(ph, pw, ss, 8):
-        return [encode_color(image, config, device=dev) for image in images]
-    stack = np.stack([
-        pad_edge(np.repeat(image[..., None], 3, axis=-1)
-                 if image.ndim == 2 else image, *mcu_dims(ss))
-        for image in images
-    ])
-    b = len(images)
-    rgb = torch.from_numpy(stack).to(dev).reshape(b * ph, pw, 3)
-    state = tables.encoder_state(config, dev)
-    int_mode = config.dct_dtype == "int32"
-    luma = transform_rgb_y(rgb, state, int_mode)
-    chroma = transform_rgb_chroma(rgb, state, int_mode, ss)
+        return [encode_color(image, config, device=devs[0])
+                for image in images]
     fy, fx = sampling_factors(ss)
     nmch, nmcw = ph // (8 * fy), pw // (8 * fx)
-    dcd = color_dc_differences(luma, chroma, b * nmch, nmcw, ss,
-                               nmch * nmcw)
+    int_mode = config.dct_dtype == "int32"
+    fronts = []
+    for dev, lo, hi in _shares(len(images), devs, nmcw):
+        stack = np.stack([
+            pad_edge(np.repeat(image[..., None], 3, axis=-1)
+                     if image.ndim == 2 else image, *mcu_dims(ss))
+            for image in images[lo:hi]
+        ])
+        b = hi - lo
+        rgb = torch.from_numpy(stack).to(dev).reshape(b * ph, pw, 3)
+        state = tables.encoder_state(config, dev)
+        luma = transform_rgb_y(rgb, state, int_mode)
+        chroma = transform_rgb_chroma(rgb, state, int_mode, ss)
+        dcd = color_dc_differences(luma, chroma, b * nmch, nmcw, ss,
+                                   nmch * nmcw)
+        fronts.append((luma, chroma, dcd, state, b))
     specs, caps = None, capacity_ladder(config)
     if config.optimize_huffman:
-        specs, state = color_tables(luma, chroma, dcd, state)
+        # one set of tables from the counts of every share
+        specs, (hl, hc) = optimal_tables(
+            sum(symbol_histograms(lu, d[0], 0).cpu()
+                + symbol_histograms(ch, d[1], 1).cpu()
+                for lu, ch, d, _, _ in fronts), ("lum", "chrom"), "cpu")
+        fronts = [(lu, ch, d, st._replace(huff=hl.to(lu.device),
+                                          huff_chroma=hc.to(lu.device)), b)
+                  for lu, ch, d, st, b in fronts]
         caps = itertools.takewhile(
             lambda cap: color_raw_ok(ph, pw, ss, cap), caps)
 
-    def streams_at(cap):
-        slot_major = cap <= 16 and not color_raw_ok(ph, pw, ss, cap)
-        streams = mcu_streams_slot_major if slot_major else mcu_streams
-        return streams(luma, chroma, dcd, state, b * nmch, nmcw, ss,
-                       kernel_cap(cap))
+    def part(luma, chroma, dcd, state, b):
+        def streams_at(cap):
+            slot_major = cap <= 16 and not color_raw_ok(ph, pw, ss, cap)
+            streams = mcu_streams_slot_major if slot_major else mcu_streams
+            return streams(luma, chroma, dcd, state, b * nmch, nmcw, ss,
+                           kernel_cap(cap))
+        return streams_at
 
-    scans = _encode_stack(streams_at, caps, b, nmch, nmcw, config.pad_ones)
+    scans = _encode_stacks([(part(*f), f[-1]) for f in fronts], caps, nmch,
+                           nmcw, config.pad_ones)
     if scans is None:
         if not config.optimize_huffman:
             raise RuntimeError("worst-case entropy capacity overflowed (bug)")
         # past the shared rung jpegtpu gives each image its own tables
-        return [encode_color(image, config, device=dev) for image in images]
+        return [encode_color(image, config, device=devs[0])
+                for image in images]
     return [jfif.assemble(image.shape[1], image.shape[0], config, [scan],
                           huffman_specs=specs)
             for image, scan in zip(images, scans)]
@@ -252,19 +289,22 @@ def encode_grayscale_batch(images: list, config: EncodeConfig | None = None,
     """Encode uint8 images ([H, W] luma or [H, W, 3] RGB) as baseline
     grayscale JFIF byte strings, in input order, byte-identical to
     jpegtpu's batch.encode_grayscale_batch (and so to its single-image
-    encodes, apart from the tables that optimize_huffman shares). mesh
-    (sharding across devices) is not ported yet."""
+    encodes, apart from the tables that optimize_huffman shares). mesh:
+    a list of devices (parallel.sharding.make_mesh) that each shape
+    group's images split across, as jpegtpu splits its batch axis, with
+    shared 2-pass tables from the counts of every share; the files do not
+    change."""
     config = config or EncodeConfig()
-    dev = _prepare(images, config, mesh, 1, device)
+    devs = _prepare(images, config, mesh, 1, device)
     if config.restart_interval or config.entropy != "device":
-        return [encode_grayscale(image, config, device=dev)
+        return [encode_grayscale(image, config, device=devs[0])
                 for image in images]
     out: list = [None] * len(images)
     groups = _groups(images, lambda image: (
         -(-image.shape[0] // 8) * 8, -(-image.shape[1] // 8) * 8,
         image.ndim == 3))
     for (ph, pw, _), idxs in groups.items():
-        files = _gray_group([images[i] for i in idxs], ph, pw, config, dev)
+        files = _gray_group([images[i] for i in idxs], ph, pw, config, devs)
         for i, data in zip(idxs, files):
             out[i] = data
     return out
@@ -275,18 +315,19 @@ def encode_color_batch(images: list, config: EncodeConfig | None = None,
     """Encode uint8 images ([H, W, 3] RGB, or [H, W] gray promoted to RGB)
     as baseline YCbCr JFIF byte strings, in input order, byte-identical to
     jpegtpu's batch.encode_color_batch. The default config is 4:2:0 at
-    Q50. mesh (sharding across devices) is not ported yet."""
+    Q50. mesh as in encode_grayscale_batch."""
     config = config or EncodeConfig(subsampling="420")
-    dev = _prepare(images, config, mesh, 3, device)
+    devs = _prepare(images, config, mesh, 3, device)
     if config.restart_interval or config.entropy != "device":
-        return [encode_color(image, config, device=dev) for image in images]
+        return [encode_color(image, config, device=devs[0])
+                for image in images]
     out: list = [None] * len(images)
     # 2-D and RGB images of one padded shape share a group (both encode
     # as RGB), as in jpegtpu
     groups = _groups(images, lambda image: padded_dims_color(
         *image.shape[:2], config.subsampling))
     for (ph, pw), idxs in groups.items():
-        files = _color_group([images[i] for i in idxs], ph, pw, config, dev)
+        files = _color_group([images[i] for i in idxs], ph, pw, config, devs)
         for i, data in zip(idxs, files):
             out[i] = data
     return out

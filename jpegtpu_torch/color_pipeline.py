@@ -1,9 +1,10 @@
 """Single-image color encode, 4:2:0, 4:2:2 and 4:4:4 (counterpart of
 `jpegtpu/color_pipeline.py`: encode_color, color_coefficients,
 _scan_layout, the device body _fused_raw_planes + _color_merged_raw +
-_color_encode_body_raw, the restart body _color_restart_body_raw, and
-the 2-pass paths _color_stats_fn + _encode_color_optimized_device and
-_encode_color_optimized_restart_device).
+_color_encode_body_raw, the restart body _color_restart_body_raw, the
+2-pass paths _color_stats_fn + _encode_color_optimized_device and
+_encode_color_optimized_restart_device, and the sharded encode
+encode_color_sharded with sharded_color_stitch_plan).
 
 One MCU holds fy x fx luma blocks, one Cb and one Cr block (T.81 A.2.3);
 luma uses table 0, chroma table 1, and each component has its own DC
@@ -45,6 +46,7 @@ from .entropy.pack import encode_blocks
 from .io import jfif
 from .ops.blocks import mcu_dims, pad_edge, sampling_factors, slots_per_mcu
 from .ops.transform import transform_rgb_chroma, transform_rgb_y
+from .parallel import multihost, sharding
 from .pipeline import (_check_image, capacity_ladder, finish_streams,
                        host_scan, kernel_cap, optimal_tables, record_cap,
                        resolve_device)
@@ -233,3 +235,79 @@ def mcu_streams_slot_major(luma: torch.Tensor, chroma: torch.Tensor, dcd,
     merged, mbits = merge_streams(*slot_major_streams(
         wy, by, wc, bc, nmch, nmcw, subsampling))
     return merged, mbits, torch.cat([by, bc]) > cap * 32
+
+
+def sharded_color_stitch_plan(ph: int, pw: int, cfg: EncodeConfig, n: int,
+                              cap: int):
+    """(k restart segments per shard, segments per chunk) of jpegtpu's
+    stitched color route for an MCU-padded ph x pw on n shards; 0 per
+    chunk -> the per-segment route."""
+    mh, mw = mcu_dims(cfg.subsampling)
+    rows, nmcw = ph // n // mh, pw // mw
+    seg = sharding.restart_subsegments(rows, nmcw)
+    k = rows * nmcw // seg
+    if k == 1:
+        return 1, 1
+    return k, sharding.stitch_geometry(
+        rows * nmcw, seg, slots_per_mcu(cfg.subsampling) * cap)[1]
+
+
+def encode_color_sharded(image: np.ndarray, config: EncodeConfig | None = None,
+                         mesh=None, orig_shape: tuple[int, int] | None = None,
+                         *, device=None) -> bytes:
+    """Encode an image (uint8 [H, W, 3] RGB, or [H, W] gray promoted to
+    RGB) in len(mesh) shards of whole MCU rows as a YCbCr JFIF whose scan
+    is n * k restart segments, byte-identical to jpegtpu's
+    encode_color_sharded: each shard transforms its band (16 pixel rows
+    an MCU row at 4:2:0, 8 at 4:4:4), resets its Y, Cb and Cr DC chains
+    at its first MCU and codes its own segments (parallel.sharding holds
+    the routes and rules). Each shard's MCU streams come from K4 with
+    both tables and K5; jpegtpu's per-segment route with one segment a
+    shard merges by K6 at rungs <= 16 (its slot-major route), as here.
+    orig_shape, mesh and device as in encode_grayscale_sharded."""
+    config = config or EncodeConfig(subsampling="420")
+    if config.n_components != 3:
+        raise ValueError("encode_color_sharded needs a color subsampling")
+    mesh = sharding.resolve_mesh(mesh, device)
+    n = len(mesh)
+    if image.ndim == 2:
+        image = np.repeat(image[..., None], 3, axis=-1)
+    _check_image(image)
+    ss = config.subsampling
+    h, w = orig_shape if orig_shape is not None else image.shape[:2]
+    mh, mw = mcu_dims(ss)
+    ph = -(-h // (mh * n)) * mh * n
+    pw = -(-w // mw) * mw
+    rows, nmcw = ph // n // mh, pw // mw
+    seg = sharding.restart_subsegments(rows, nmcw)
+    k = rows * nmcw // seg
+    stitched = multihost.process_count() == 1 and all(
+        sharded_color_stitch_plan(ph, pw, config, n, c)[1] > 0
+        for c in (8, 16))
+    int_mode = config.dct_dtype == "int32"
+    shards = []
+    for i in multihost.local_shard_indices(mesh):
+        rgb = sharding.band(image, i, n, ph, pw, mesh[i])
+        state = tables.encoder_state(config, mesh[i])
+        luma = transform_rgb_y(rgb, state, int_mode)
+        chroma = transform_rgb_chroma(rgb, state, int_mode, ss)
+        dcd = color_dc_differences(luma, chroma, rows, nmcw, ss, seg)
+        shards.append(sharding.Shard(i, mesh[i], (luma, chroma, dcd, state)))
+
+    def hist(front):
+        luma, chroma, dcd, _ = front
+        return (symbol_histograms(luma, dcd[0], 0)
+                + symbol_histograms(chroma, dcd[1], 1))
+
+    def streams(front, cap, huffs, per_segment):
+        luma, chroma, dcd, state = front
+        if huffs is not None:
+            state = state._replace(huff=huffs[0], huff_chroma=huffs[1])
+        slot_major = per_segment and k == 1 and cap <= 16
+        return (mcu_streams_slot_major if slot_major else mcu_streams)(
+            luma, chroma, dcd, state, rows, nmcw, ss, cap)
+
+    scan, specs = sharding.encode_shards(shards, config, n, k, seg, stitched,
+                                         ("lum", "chrom"), hist, streams)
+    return jfif.assemble(w, h, sharding.restart_config(config, seg), scan,
+                         huffman_specs=specs)

@@ -509,6 +509,58 @@ def concat_segments(words: torch.Tensor, bits: torch.Tensor, nbh: int,
                               n // n_images * c, pad_ones)
 
 
+def segment_width(nbw: int) -> int:
+    """K8's segment width for rows of nbw blocks (or MCUs) cut into
+    segments of their own images (a batch) or restart segments:
+    jpegtpu's slot width (batch._slot_geom), the power of two >= 16 that
+    holds a row of <= 64, else 128."""
+    ws = SEGMENT_WIDTHS[0]
+    while ws < nbw:
+        ws *= 2
+    return min(ws, LANES)
+
+
+def encode_segments(words: torch.Tensor, bits: torch.Tensor, seg_len: int,
+                    pad_ones: bool):
+    """S independent byte-aligned segments of seg_len streams each, in one
+    pass (the concat half of jpegtpu's entropy.device.
+    encode_segments_device): per-block or per-MCU streams [C, S * seg_len]
+    + bits, whose DC chains the caller already reset at every segment ->
+    (streams [S, seg_len * C] int32, total bits [S] int64 with each
+    segment's tail padding). Each segment is one row of seg_len streams,
+    so a segment need not hold whole block rows: K8 at segment_width, then
+    K11."""
+    n = words.shape[1]
+    if n % seg_len:
+        raise ValueError(f"{n} streams do not split into segments of "
+                         f"{seg_len}")
+    s = n // seg_len
+    return concat_segments(words, bits, s, seg_len, s,
+                           segment_width(seg_len), pad_ones)
+
+
+def stitch_plan(s: int, seg128: int, cap: int) -> int:
+    """Segments per chunk of jpegtpu's VMEM-resident restart stitch, or 0
+    where it is infeasible (jpegtpu.entropy.pallas_concat.stitch_plan),
+    for s segments of seg128 streams (a multiple of 128) of cap words.
+    Where it is 0 jpegtpu's sharded encodes leave the stitched route for
+    the per-segment one; K12 has no such limit, so the plan decides only
+    the route (parallel.sharding.sharded_stitch_plan)."""
+    sr = cap + 1
+    avail = VMEM_BUDGET - 2 * SUBLANES * sr * LANES * 4
+
+    def chunk_bytes(spc: int) -> int:
+        return (-(-(spc * seg128 * cap) // LANES) + sr + 4) * LANES * 4
+
+    if chunk_bytes(1) > avail:
+        return 0
+    n_chunks = 1
+    while -(-s // n_chunks) > 1 and chunk_bytes(-(-s // n_chunks)) > avail:
+        n_chunks += 1
+    spc = -(-s // n_chunks)
+    return spc if chunk_bytes(spc) <= avail else 0
+
+
 def apply_tail_padding_segments(streams: torch.Tensor, totals: torch.Tensor,
                                 pad_ones: bool):
     """Pad each stream's final partial byte with 1s (T.81) or 0s: streams

@@ -306,7 +306,7 @@ def stuff_bytes_device(words: torch.Tensor, total_bits: torch.Tensor):
     the zeros left between."""
     dev = words.device
     n = words.shape[0] * 4
-    shifts = torch.tensor([24, 16, 8, 0], device=dev)
+    shifts = 24 - 8 * torch.arange(4, device=dev)  # no host copy
     raw = ((words.to(torch.int64)[:, None] >> shifts) & 0xFF).reshape(-1)
     nbytes = (total_bits.to(torch.int64) + 7) >> 3
     valid = torch.arange(n, device=dev) < nbytes

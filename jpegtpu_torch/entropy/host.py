@@ -215,19 +215,21 @@ def encode_scan(zz: np.ndarray, table_sel: np.ndarray | None = None,
             for s in range(int(np.max(segment_ids)) + 1)]
 
 
-def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray) -> bytes:
+def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray,
+                    rst_phase: int = 0, trailing: bool = False) -> bytes:
     """One word buffer of byte-aligned segments back to back (uint32,
-    bytes MSB-first) -> stuff(seg_0) RST0 stuff(seg_1) RST1 ... (markers
-    cycling RST0..RST7, none after the last). Native when the C++ runtime
-    builds, else numpy (the same bytes)."""
+    bytes MSB-first) -> stuff(seg_0) RST stuff(seg_1) RST ... (markers
+    cycling RST0..RST7 from RST<rst_phase>, none after the last unless
+    `trailing`). Native when the C++ runtime builds, else numpy (the same
+    bytes)."""
     if native.available():
-        return native.scan_from_words(words, seg_bytes)
+        return native.scan_from_words(words, seg_bytes, rst_phase, trailing)
     raw = np.frombuffer(np.asarray(words, np.uint32).astype(">u4").tobytes(),
                         np.uint8)
     ends = np.cumsum(seg_bytes)
     parts = []
     for j, (lo, hi) in enumerate(zip(ends - seg_bytes, ends)):
-        if j:
-            parts.append(bytes([0xFF, 0xD0 + ((j - 1) & 7)]))
         parts.append(stuff_bytes(raw[lo:hi]))
+        if j + 1 < len(seg_bytes) or trailing:
+            parts.append(bytes([0xFF, 0xD0 + ((rst_phase + j) & 7)]))
     return b"".join(parts)

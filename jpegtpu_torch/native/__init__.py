@@ -50,7 +50,8 @@ def _load():
         ]
         lib.jt_scan_from_words.restype = ctypes.c_size_t
         lib.jt_scan_from_words.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         lib.jt_bmp_to_rgb.restype = None
         lib.jt_bmp_to_rgb.argtypes = [
@@ -90,11 +91,14 @@ def words_to_stuffed(words: np.ndarray, total_bits: int) -> bytes:
     return out[:n].tobytes()
 
 
-def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray) -> bytes:
+def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray,
+                    rst_phase: int = 0, trailing: bool = False) -> bytes:
     """One stitched word buffer of byte-aligned segments -> the full
-    RST-delimited stuffed scan (stuff(seg_0) RST0 stuff(seg_1) RST1 ...,
-    no marker after the last) in one native pass. seg_bytes: per-segment
-    byte lengths."""
+    RST-delimited stuffed scan (stuff(seg_0) RST stuff(seg_1) RST ...) in
+    one native pass. seg_bytes: per-segment byte lengths; rst_phase: the
+    index of the marker after segment 0 (markers cycle RST0..RST7);
+    trailing: also put a marker after the last segment (a scan that
+    another buffer continues, as a shard's is by the next shard's)."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native runtime unavailable")
@@ -106,7 +110,7 @@ def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray) -> bytes:
     out = np.empty(2 * total + 2 * seg_bytes.size + 4, dtype=np.uint8)
     n = lib.jt_scan_from_words(
         words.ctypes.data, seg_bytes.ctypes.data, seg_bytes.size,
-        out.ctypes.data,
+        int(rst_phase), int(bool(trailing)), out.ctypes.data,
     )
     return out[:n].tobytes()
 

@@ -71,13 +71,16 @@ size_t jt_words_to_stuffed(const uint32_t* words, int64_t total_bits,
 
 // Full restart-marker scan from ONE stitched word buffer: the buffer holds
 // byte-aligned segments back to back (entropy/stitch.py); emit
-// stuff(seg_0) RST0 stuff(seg_1) RST1 ... in one pass. The marker after
-// segment s is FFD0 + (s & 7); none follows the last segment.
-// seg_bytes[s] = segment byte length. Words are host-order uint32, bytes
-// MSB-first (as jt_words_to_stuffed). `out` must hold
-// 2 * sum(seg_bytes) + 2 * n_seg. Returns the output length.
+// stuff(seg_0) RST stuff(seg_1) RST ... in one pass. The marker after
+// segment s is FFD0 + ((rst_phase + s) & 7); none follows the last
+// segment unless `trailing` (a scan continued by another buffer, as a
+// shard's segments are by the next shard's). seg_bytes[s] = segment byte
+// length. Words are host-order uint32, bytes MSB-first (as
+// jt_words_to_stuffed). `out` must hold 2 * sum(seg_bytes) + 2 * n_seg.
+// Returns the output length.
 size_t jt_scan_from_words(const uint32_t* words, const int64_t* seg_bytes,
-                          int64_t n_seg, uint8_t* out) {
+                          int64_t n_seg, int rst_phase, int trailing,
+                          uint8_t* out) {
   size_t o = 0;
   int64_t b = 0;  // global byte cursor into the word buffer
   for (int64_t s = 0; s < n_seg; ++s) {
@@ -113,9 +116,9 @@ size_t jt_scan_from_words(const uint32_t* words, const int64_t* seg_bytes,
       if (v == 0xFF) out[o++] = 0;
       ++b;
     }
-    if (s + 1 < n_seg) {
+    if (s + 1 < n_seg || trailing) {
       out[o++] = 0xFF;
-      out[o++] = static_cast<uint8_t>(0xD0 + (s & 7));
+      out[o++] = static_cast<uint8_t>(0xD0 + ((rst_phase + s) & 7));
     }
   }
   return o;

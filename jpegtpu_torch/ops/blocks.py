@@ -46,3 +46,25 @@ def pad_edge(img: np.ndarray, mh: int = 8, mw: int = 8) -> np.ndarray:
         return img
     pad = [(0, ph - h), (0, pw - w)] + [(0, 0)] * (img.ndim - 2)
     return np.pad(img, pad, mode="edge")
+
+
+_BAND_ROWS = 256  # rows a copying thread takes at a time
+
+
+def pad_into(dst: np.ndarray, image: np.ndarray, pool=None) -> None:
+    """Edge-replicate `image` ([H, W] or [H, W, C]; [H, W] into a 3-channel
+    dst is repeated to each channel) into the larger `dst`, as np.pad's
+    "edge" mode does: the columns right, then the rows below, corners
+    from the last pixel. With a thread pool, bands of rows copy in
+    parallel (numpy lets go of the GIL while it copies)."""
+    h, w = image.shape[:2]
+    src = image[..., None] if dst.ndim > image.ndim else image
+
+    def band(lo):
+        hi = min(lo + _BAND_ROWS, h)
+        dst[lo:hi, :w] = src[lo:hi]
+        dst[lo:hi, w:] = dst[lo:hi, w - 1:w]
+
+    list((pool.map if pool is not None else map)(band,
+                                                 range(0, h, _BAND_ROWS)))
+    dst[h:] = dst[h - 1:h]

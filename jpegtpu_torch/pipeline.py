@@ -234,15 +234,32 @@ def finish_scan(words: torch.Tensor, bits: torch.Tensor,
     `overflow` holds anywhere (the caller retries at the next rung). With
     stuff_on_device the stream is stuffed on its device
     (stuff_bytes_device) and only the stuffed bytes are read back."""
+    stream, head = scan_stream(words, bits, overflow, nbh, nbw, pad_ones,
+                               rung_words, stuff_on_device)
+    overflowed, count = head.tolist()
+    if overflowed:
+        return None
+    return read_scan(stream, count, stuff_on_device)
+
+
+def scan_stream(words: torch.Tensor, bits: torch.Tensor,
+                overflow: torch.Tensor, nbh: int, nbw: int, pad_ones: bool,
+                rung_words: int | None = None,
+                stuff_on_device: bool = False):
+    """The device half of finish_scan, with no host sync: -> (the padded
+    scan stream, head [2] int64 on its device: any overflow, then the
+    total bits, or the stuffed bytes with stuff_on_device)."""
     stream, total = concat_stream(words, bits, nbh, nbw, rung_words,
                                   pad_ones)
     if stuff_on_device:  # -> (stuffed bytes, their count)
         stream, total = stuff_bytes_device(stream, total)
-    overflowed, count = torch.stack(
-        [overflow.any().to(torch.int64), total]
-    ).tolist()
-    if overflowed:
-        return None
+    return stream, torch.stack([overflow.any().to(torch.int64), total])
+
+
+def read_scan(stream: torch.Tensor, count: int,
+              stuff_on_device: bool = False) -> bytes:
+    """The host half of finish_scan: one readback of the valid prefix of
+    a scan_stream (count: its head's total) -> stuffed scan bytes."""
     if stuff_on_device:
         return stream[:count].cpu().numpy().tobytes()
     nwords = (count + 31) // 32

@@ -219,10 +219,12 @@ def test_input_order_empty_batch_and_refusals():
                                                **CPU)[::-1]
     assert batch.encode_grayscale_batch([], **CPU) == []
     assert batch.encode_color_batch([], **CPU) == []
-    with pytest.raises(NotImplementedError, match="M7"):
-        batch.encode_grayscale_batch(images, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="M7"):
-        batch.encode_color_batch(images, mesh=object(), **CPU)
+    # a mesh splits the batch across devices and changes no file
+    assert batch.encode_grayscale_batch(images, cfg, mesh=["cpu"] * 2,
+                                        **CPU) == got
+    ccfg = EncodeConfig(subsampling="420", dct_dtype="int32")
+    assert batch.encode_color_batch(images, ccfg, mesh=["cpu"] * 3) == \
+        batch.encode_color_batch(images, ccfg, **CPU)
     with pytest.raises(ValueError, match="encode_color_batch"):
         batch.encode_grayscale_batch(images, EncodeConfig(subsampling="420"),
                                      **CPU)
