@@ -33,7 +33,14 @@ per shard, int32 files equal to the CPU path); multiprocess (two
 processes on the card over gloo, one shard each, started as
 `chip_smoke.py --worker PORT RANK DIR`: K8 + K11, K6 for 4:2:0, files
 equal to one process); and batch_mesh (1024 x 512 x 512 gray on a mesh
-of the card twice, files equal to no mesh).
+of the card twice, files equal to no mesh). Last, tooling: the command
+line (jpegtpu_torch.cli encode with and without --sharded and
+--entropy host, encode-dir batched and --pipeline 2, profile) at 3024 x
+4032 gray and 4:2:0, every file equal to the port's CPU path; the stage
+profiles (profiling.format_report's tables, printed as they are); the
+block report (debug.first_block_report) on the card equal to the CPU's
+and to K1's levels; and the quality metrics (analysis.mse, psnr, ssim)
+of each luma against its reconstruction from K1's levels.
 Every source is built anew; the build line lists each kernel's registers,
 spills and shared memory, and the run fails if a kernel of transform.cu,
 pack.cu, merge.cu or concat.cu (K1-K11) spills. Right after the build,
@@ -214,95 +221,14 @@ def time_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-def concat_label(nbh: int, nbw: int, c: int) -> str:
-    """The stage name of K8 + K9 (or K10, past jpegtpu's resident budget)
-    for an nbh x nbw grid of streams of c words."""
-    mode = concat.concat_mode(nbh, nbw, c, concat.column_groups(nbw))
-    return ("K8_K9_concat_and_tail_pad" if mode == "pallas-resident"
-            else "K8_K10_concat_and_tail_pad")
-
-
-def stage_breakdown(img, cfg, reps: int = 5) -> dict:
-    """Host-clock milliseconds of each stage of one main-path encode,
-    each ended by a synchronize (medians over reps)."""
-    stages = {}
-
-    def mark(name, t0):
-        torch.cuda.synchronize()
-        stages.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
-    h, w = img.shape
-    nbh, nbw = h // 8, w // 8
-    cap = cfg.capacity_words_per_block
-    for _ in range(reps):
-        t = time.perf_counter()
-        plane = torch.from_numpy(img).cuda()
-        state = tables.encoder_state(cfg, "cuda")
-        t = mark("h2d_image_and_tables", t)
-        lv = transform.transform(plane, state, False)
-        t = mark("K1_transform", t)
-        words, bits = pack.encode_blocks(lv, dc_differences(lv[0]),
-                                         state.huff, cap)
-        t = mark("dc_diff_and_K4_pack", t)
-        stream, total = concat.concat_stream(words, bits, nbh, nbw,
-                                             pad_ones=cfg.pad_ones)
-        t = mark(concat_label(nbh, nbw, cap), t)
-        ov, total_bits = torch.stack(
-            [(bits > cap * 32).any().to(torch.int64), total]).tolist()
-        words_np = stream[: (total_bits + 31) // 32].cpu().numpy()
-        t = mark("d2h_overflow_total_and_words", t)
-        scan = native.words_to_stuffed(words_np.view(np.uint32), total_bits)
-        t = mark("host_stuff", t)
-        pipeline.jfif.assemble(w, h, cfg, [scan])
-        mark("host_assemble", t)
-    return {k: float(np.median(v)) for k, v in stages.items()}
-
-
-def color_stage_breakdown(img, cfg, reps: int = 5) -> dict:
-    """Host-clock milliseconds of each stage of one color main-path
-    encode, each ended by a synchronize (medians over reps)."""
-    stages = {}
-
-    def mark(name, t0):
-        torch.cuda.synchronize()
-        stages.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
-    h, w = img.shape[:2]
-    nmch, nmcw = h // 16, w // 16
-    cap = cfg.capacity_words_per_block
-    for _ in range(reps):
-        t = time.perf_counter()
-        rgb = torch.from_numpy(img).cuda()
-        state = tables.encoder_state(cfg, "cuda")
-        t = mark("h2d_rgb_and_tables", t)
-        ly = transform.transform_rgb_y(rgb, state, False)
-        t = mark("K2_transform_rgb_y", t)
-        lc = transform.transform_rgb_chroma(rgb, state, False, "420")
-        t = mark("K3_transform_rgb_chroma", t)
-        dy = y_dc_differences(ly[0].reshape(2 * nmch, 2 * nmcw),
-                              "420").reshape(-1)
-        dc = dc_differences(lc[0].reshape(2, -1)).reshape(-1)
-        t = mark("dc_differences", t)
-        wy, by = pack.encode_blocks(ly, dy, state.huff, cap)
-        wc, bc = pack.encode_blocks(lc, dc, state.huff_chroma, cap)
-        t = mark("K4_pack_x2", t)
-        words, bits = merge.merge_mcu(wy, by, wc, bc, nmch, nmcw, "420")
-        t = mark("K5_merge_mcu", t)
-        stream, total = concat.concat_stream(words, bits, nmch, nmcw,
-                                             pad_ones=cfg.pad_ones)
-        t = mark(concat_label(nmch, nmcw, words.shape[0]), t)
-        ov, total_bits = torch.stack(
-            [(torch.cat([by, bc]) > cap * 32).any().to(torch.int64),
-             total]).tolist()
-        words_np = stream[: (total_bits + 31) // 32].cpu().numpy()
-        t = mark("d2h_overflow_total_and_words", t)
-        scan = native.words_to_stuffed(words_np.view(np.uint32), total_bits)
-        t = mark("host_stuff", t)
-        pipeline.jfif.assemble(w, h, cfg, [scan])
-        mark("host_assemble", t)
-    return {k: float(np.median(v)) for k, v in stages.items()}
+def profile_rows(img, cfg) -> dict:
+    """Milliseconds of each stage of one single-image encode on the card:
+    jpegtpu_torch.profiling's rows (device rows by CUDA events behind a
+    spin, host rows by the host clock; medians of 5)."""
+    from jpegtpu_torch import profiling
+    run = (profiling.profile_encode_color if cfg.n_components == 3
+           else profiling.profile_encode)
+    return {s.name: s.stage_ms for s in run(img, cfg)}
 
 
 def u32(t: torch.Tensor) -> np.ndarray:
@@ -776,7 +702,7 @@ def color_phases(dev, say) -> list:
         first_call_s=first_s, median_s=e2e_med,
         mpix_per_s=H * W / 1e6 / e2e_med, launches=launches)
     say("color_stage_breakdown_ms", shape=[H, W, 3], subsampling="420",
-        **color_stage_breakdown(img, cfg))
+        **profile_rows(img, cfg))
 
     # --- 8. 4:2:2 and 4:4:4 ----------------------------------------------
     side = make_color_image(SIDE_H, SIDE_W)
@@ -1686,8 +1612,7 @@ def large_frame_phases(dev, say) -> list:
             first_call_s=first_s, median_s=e2e_med, runs_s=e2e_s,
             mpix_per_s=BIG_H * BIG_W / 1e6 / e2e_med, launches=launches)
         say("stage_breakdown_ms", path=f"8k_{kind}", shape=list(img.shape),
-            **(color_stage_breakdown(img, cfg) if color
-               else stage_breakdown(img, cfg)))
+            **profile_rows(img, cfg))
 
         # --- 24. K8, K10 and K9 at 8K, device ms and bounds -------------
         lv = levels(False)
@@ -2691,6 +2616,232 @@ def batch_mesh_phases(dev, say) -> list:
     return entries
 
 
+TOOL_DIR_N = 8  # 512 x 512 BMPs of the encode-dir checks
+
+
+def reconstruct(zz: np.ndarray, quant: np.ndarray, h: int,
+                w: int) -> np.ndarray:
+    """A decoder's view of an encode, for the quality metrics: zigzag
+    levels [nb, 64] of an h x w plane (blocks in raster order over the
+    plane padded to 8) -> dequantized, inverse DCT with the orthonormal
+    basis, + 128, rounded and clipped -> uint8 [h, w]."""
+    coef = np.empty(zz.shape, np.float64)
+    order = tables.ZIGZAG_ORDER
+    coef[:, order] = zz * quant.reshape(64)[order]
+    t = tables.dct_basis(np.float64)
+    x = np.matmul(t.T, np.matmul(coef.reshape(-1, 8, 8), t))
+    ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
+    plane = x.reshape(ph // 8, pw // 8, 8, 8).transpose(0, 2, 1, 3)
+    plane = plane.reshape(ph, pw)[:h, :w]
+    return np.clip(np.round(plane + 128), 0, 255).astype(np.uint8)
+
+
+def tooling_phases(dev, say) -> list:
+    """The tooling (M8) at 3024 x 4032, gray and 4:2:0, through
+    `jpegtpu_torch.cli.main` as a user runs it: encode (default, --sharded
+    and --entropy host), each file equal to the port's CPU path (with
+    host entropy, which gives the same bytes for a fraction of the device
+    entropy's plain-version time, on a host thread while the card works;
+    the sharded file, one shard on the one card, against the CPU encode
+    at its restart interval), the launches of each run; encode-dir on TOOL_DIR_N BMPs of 512 x 512, batch and
+    --pipeline 2, each file equal to the CPU path; the profile table
+    (the CLI's, then profile_encode / profile_encode_color, whose file
+    must equal the CPU path), first, with no host thread of the phase
+    busy beside it; first_block_report on `dev` equal to the CPU's
+    and its zigzag equal to K1's levels of that block; mse, psnr and ssim
+    of each image's luma against its reconstruction from K1's levels. The
+    CLI encode's kernels against their plain versions and timed. Returns
+    the kernel entries."""
+    import tempfile
+
+    from jpegtpu_torch import analysis, cli, debug, profiling
+    from jpegtpu_torch.io import bmp
+    from jpegtpu_torch.ops import color as color_ops
+    from jpegtpu_torch.parallel import sharding
+    on_card = dev.type == "cuda"
+    dev_flags = [] if on_card else ["--device", str(dev)]
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(__file__)),
+                           prefix=".tooling_")
+    entries = []
+
+    def run(argv) -> dict:
+        reset_launches()
+        check(cli.main(argv + dev_flags) == 0, f"cli {argv}: nonzero exit")
+        return dict(_build.LAUNCHES)
+
+    def read(path) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    def inputs(kind, color):
+        """The phase's images of one kind, written as BMPs."""
+        img = make_color_image(H, W) if color else make_image(H, W)
+        rgb = img if color else np.repeat(img[..., None], 3, axis=-1)
+        small = batch_images(TOOL_DIR_N, 512, 512, color, seed=80 + color)
+        if not color:
+            small = np.repeat(small[..., None], 3, axis=-1)
+        os.makedirs(os.path.join(tmp, f"in_{kind}"))
+        bmp.write(os.path.join(tmp, f"{kind}.bmp"), rgb)
+        for i, im in enumerate(small):
+            bmp.write(os.path.join(tmp, f"in_{kind}", f"im{i}.bmp"), im)
+        return img, rgb, small
+
+    def cpu_path(rgb, small, color):
+        """The port's CPU files (host entropy): the image, the image at
+        the sharded file's restart interval, the encode-dir images."""
+        t0 = time.perf_counter()
+        cfg = EncodeConfig(subsampling="420" if color else "gray",
+                           entropy="host")
+        enc = (color_pipeline.encode_color if color
+               else pipeline.encode_grayscale)
+        mh = 16 if color else 8
+        seg = sharding.restart_subsegments(-(-H // mh), -(-W // mh))
+        return {"default": enc(rgb, cfg, device="cpu"),
+                "sharded": enc(rgb, dataclasses.replace(
+                    cfg, restart_interval=seg), device="cpu"),
+                "dir": [enc(im, cfg, device="cpu") for im in small],
+                "restart_interval": seg, "s": time.perf_counter() - t0}
+
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(1)  # the CPU files while the card works
+    try:
+        kinds = (("gray", False), ("420", True))
+        made = {kind: inputs(kind, color) for kind, color in kinds}
+        # --- profile: the CLI's table, then the rows and the file; first,
+        # so that no host thread of this phase is busy beside it ---------
+        profs = {}
+        for kind, color in kinds:
+            img = made[kind][0]
+            run(["profile", os.path.join(tmp, f"{kind}.bmp"),
+                 "--subsampling", kind])
+            cfg = EncodeConfig(subsampling="420") if color else EncodeConfig()
+            prof = profs[kind] = (profiling.profile_encode_color if color
+                                  else profiling.profile_encode)(
+                img, cfg, device=dev)
+            check(all(s.stage_ms >= 0 for s in prof),
+                  f"profile {kind}: a negative row")
+            print(profiling.format_report(prof, H, W), flush=True)
+            say(f"tooling_{kind}_profile_ms", shape=list(img.shape),
+                rows={s.name: s.stage_ms for s in prof},
+                total_ms=prof[-1].total_ms)
+        cpu_files = {kind: pool.submit(cpu_path, *made[kind][1:], color)
+                     for kind, color in kinds}
+        for kind, color in kinds:
+            cfg = EncodeConfig(subsampling="420") if color else EncodeConfig()
+            img, rgb, small = made.pop(kind)
+            src = os.path.join(tmp, f"{kind}.bmp")
+            ss = ["--subsampling", kind]
+            # --- encode: default, --sharded, --entropy host --------------
+            files, launches, secs = {}, {}, {}
+            for name, flags in (("default", []), ("sharded", ["--sharded"]),
+                                ("entropy_host", ["--entropy", "host"])):
+                out = os.path.join(tmp, f"{kind}_{name}.jpg")
+                t0 = time.perf_counter()
+                launches[name] = run(["encode", src, out, *ss, *flags])
+                secs[name] = time.perf_counter() - t0
+                files[name] = read(out)
+            front = ({"transform_rgb_y": 1, "transform_rgb_chroma": 1,
+                      "encode_blocks": 2, "merge_mcu": 1} if color
+                     else {"transform": 1, "encode_blocks": 1})
+            expect = {
+                "default": {**front, "merge_rows": 1, "stream_concat": 1},
+                "sharded": {**front, "stitch_scan": 1, "stitch_segments": 1},
+                "entropy_host": {k: v for k, v in front.items()
+                                 if k.startswith("transform")},
+            }
+            if on_card:
+                for name, want_l in expect.items():
+                    got_l = {k: v for k, v in launches[name].items() if v}
+                    check(got_l == want_l,
+                          f"cli {kind} {name}: launches {got_l} != {want_l}")
+            # --- encode-dir: batch and --pipeline 2 ------------------------
+            dir_files, dir_launches = {}, {}
+            for mode, flags in (("batch", []), ("pipeline2",
+                                                ["--pipeline", "2"])):
+                outd = os.path.join(tmp, f"out_{kind}_{mode}")
+                dir_launches[mode] = run(["encode-dir", os.path.join(
+                    tmp, f"in_{kind}"), outd, *ss, *flags])
+                dir_files[mode] = [read(os.path.join(outd, f"im{i}.jpeg"))
+                                   for i in range(TOOL_DIR_N)]
+            if on_card:
+                b, p = dir_launches["batch"], dir_launches["pipeline2"]
+                n = TOOL_DIR_N
+                check(b["stream_concat_rows"] == 1 and b["merge_rows"] == 1
+                      and b["encode_blocks"] == 1 + color
+                      and b["merge_mcu"] + b["merge_streams"] == int(color),
+                      f"encode-dir {kind} batch: launches {b}")
+                check(p["stream_concat"] == n and p["merge_rows"] == n
+                      and p["encode_blocks"] == n * (1 + color)
+                      and p["merge_mcu"] == n * color,
+                      f"encode-dir {kind} --pipeline 2: launches {p}")
+            # --- the block report and the quality metrics -----------------
+            zz = pipeline.grayscale_coefficients(rgb, EncodeConfig(),
+                                                 device=dev)
+            if not color:
+                cfg_int = EncodeConfig(dct_dtype="int32")
+                zz_int = pipeline.grayscale_coefficients(img, cfg_int,
+                                                         device=dev)
+                blocks = (0, 5, zz.shape[0] // 2, zz.shape[0] - 1)
+                for c, levels in ((cfg, zz), (cfg_int, zz_int)):
+                    for blk in blocks:
+                        got = debug.first_block_report(img, c, blk,
+                                                       device=dev)
+                        cpu = debug.first_block_report(img, c, blk,
+                                                       device="cpu")
+                        check(all(got[k].dtype == cpu[k].dtype
+                                  and np.array_equal(got[k], cpu[k])
+                                  for k in cpu),
+                              f"block report {c.dct_dtype} {blk}: "
+                              "device != cpu")
+                        check(np.array_equal(got["zigzag"], levels[blk]),
+                              f"block report {c.dct_dtype} {blk}: zigzag "
+                              "!= K1's levels")
+                say("tooling_block_report", shape=[H, W], blocks=blocks,
+                    dct_dtypes=["float32", "int32"], equal_cpu=True,
+                    zigzag_equal_k1=True, block0_zigzag=[
+                        int(v) for v in zz[0]])
+            luma = color_ops.rgb_to_y_reference(torch.from_numpy(rgb)).numpy()
+            recon = reconstruct(zz, EncodeConfig().luma_quant, H, W)
+            m = {"mse": analysis.mse(luma, recon),
+                 "psnr_db": analysis.psnr(luma, recon),
+                 "ssim": analysis.ssim(luma, recon)}
+            check(np.isfinite(m["psnr_db"]) and m["psnr_db"] > 25
+                  and 0 < m["ssim"] <= 1, f"quality {kind}: {m}")
+            say(f"tooling_{kind}_quality", shape=[H, W], quality=50,
+                of="luma vs its reconstruction from K1's levels", **m)
+            # --- the CLI encode's kernels, against plain and timed ---------
+            x = torch.from_numpy(img).to(dev)
+            entries += chain_entries(f"tooling_cli_{kind}", x, cfg,
+                                     launches["default"], say, join="k9")
+            del x, small, rgb, img
+            # --- every file against the port's CPU path -------------------
+            want = cpu_files[kind].result()
+            check(files["default"] == want["default"],
+                  f"cli {kind}: file != CPU path")
+            check(profs[kind].jfif == want["default"],
+                  f"profile {kind}: file != CPU path")
+            check(files["entropy_host"] == want["default"],
+                  f"cli {kind} --entropy host: file != CPU path")
+            check(files["sharded"] == want["sharded"],
+                  f"cli {kind} --sharded: file != CPU path at interval "
+                  f"{want['restart_interval']}")
+            for mode, got in dir_files.items():
+                check(got == want["dir"],
+                      f"cli encode-dir {kind} {mode}: a file != CPU path")
+            say(f"tooling_{kind}_cli_encode", shape=[H, W, 3],
+                files_equal_cpu_path=sorted(files),
+                bytes=len(files["default"]),
+                restart_interval_sharded=want["restart_interval"],
+                seconds=secs, cpu_path_s=want["s"], launches=launches)
+            say(f"tooling_{kind}_cli_encode_dir", images=TOOL_DIR_N,
+                shape=[512, 512, 3], files_equal_cpu_path=sorted(dir_files),
+                launches=dir_launches)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2815,7 +2966,7 @@ def main() -> int:
         median_s=e2e_med, mpix_per_s=H * W / 1e6 / e2e_med,
         launches=launches)
     check(native.available(), "native stuffer did not build")
-    say("stage_breakdown_ms", shape=[H, W], **stage_breakdown(img, cfg))
+    say("stage_breakdown_ms", shape=[H, W], **profile_rows(img, cfg))
 
     # --- 4. capacity ladder ----------------------------------------------
     noise = np.random.default_rng(7).integers(
@@ -2875,6 +3026,7 @@ def main() -> int:
     kernels += sharded_phases(dev, say)
     kernels += multiprocess_phases(dev, say)
     kernels += batch_mesh_phases(dev, say)
+    kernels += tooling_phases(dev, say)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

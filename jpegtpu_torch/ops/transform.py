@@ -163,46 +163,81 @@ def transform_rgb_chroma_plain(rgb: torch.Tensor, state: tables.EncoderState,
     ], dim=1)
 
 
-def _blocks(plane: torch.Tensor) -> torch.Tensor:
-    """[PH, PW] -> [nb, 8, 8] level-shifted int64 samples, raster order."""
+def level_shift_blocks(plane: torch.Tensor) -> torch.Tensor:
+    """Level shift and blocks: uint8 [PH, PW] (multiples of 8) -> [nb, 8,
+    8] int32 samples - 128, blocks in raster order."""
     ph, pw = plane.shape
-    x = color.level_shift(plane).to(torch.int64)
+    x = color.level_shift(plane)
     return x.reshape(ph // 8, 8, pw // 8, 8).permute(0, 2, 1, 3).reshape(-1, 8, 8)
+
+
+def dct_float(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """The float mode's DCT, F = T X T^T: samples [nb, 8, 8] -> float32
+    coefficients [nb, 8, 8], each pass a chain of fused multiply-adds in
+    the kernel's order (k = 0..7).
+
+    The chain is computed in float64: a product of two float32 values is
+    exact there, so each step rounds once to float32, as a float32 FMA
+    does (up to a double rounding that has not been observed to move a
+    level)."""
+    t = basis.to(x.device).to(torch.float64)
+    xf = x.to(torch.float64)
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for k in range(8):  # y[u, x] = sum_k T[u, k] X[k, x], in order
+        y = (y.to(torch.float64) + t[None, :, k, None] * xf[:, None, k, :]
+             ).to(torch.float32)
+    z = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    y64 = y.to(torch.float64)
+    for k in range(8):  # z[u, v] = sum_k Y[u, k] T[v, k], in order
+        z = (z.to(torch.float64) + y64[:, :, None, k] * t[None, None, :, k]
+             ).to(torch.float32)
+    return z
+
+
+def dct_int(x: torch.Tensor, basis_int: torch.Tensor) -> torch.Tensor:
+    """The int32 mode's DCT with the 11-bit fixed-point basis: samples
+    [nb, 8, 8] -> int32 coefficients [nb, 8, 8]."""
+    # broadcast sums, not matmuls: CUDA has no int64 matmul
+    t = basis_int.to(device=x.device, dtype=torch.int64)
+    x = x.to(torch.int64)
+    y1 = ((t[None, :, :, None] * x[:, None, :, :]).sum(2) + _HALF
+          ) >> tables.INT_FRAC  # y1[u, x] = sum_k T[u, k] X[k, x]
+    f = ((y1[:, :, None, :] * t[None, None, :, :]).sum(3) + _HALF
+         ) >> tables.INT_FRAC  # f[u, v] = sum_k y1[u, k] T[v, k]
+    return f.to(torch.int32)
+
+
+def quantize_float(coeffs: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
+    """float32 coefficients [nb, 8, 8] -> int32 levels [nb, 8, 8]: a true
+    division by the table (raster [64]), then (int)(s +/- 0.5) after a
+    float32 add: round half away from zero."""
+    s = coeffs / quant.to(coeffs.device, torch.float32).reshape(8, 8)
+    return (s + torch.where(s >= 0, 0.5, -0.5).to(torch.float32)
+            ).to(torch.int32)
+
+
+def quantize_int(coeffs: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
+    """int32 coefficients [nb, 8, 8] -> int32 levels [nb, 8, 8]:
+    |level| = (2|f| + q) // (2q), the sign from f."""
+    f = coeffs.to(torch.int64)
+    q = quant.to(coeffs.device, torch.int64).reshape(8, 8)
+    mag = (2 * f.abs() + q) // (2 * q)
+    return torch.where(f < 0, -mag, mag).to(torch.int32)
+
+
+def zigzag(levels: torch.Tensor) -> torch.Tensor:
+    """[nb, 8, 8] -> [nb, 64] in zigzag order."""
+    return levels.reshape(-1, 64)[:, _ZIGZAG.to(levels.device)]
 
 
 def transform_plain(plane: torch.Tensor, state: tables.EncoderState,
                     int_mode: bool) -> torch.Tensor:
-    """Plain PyTorch K1 (any device), the same function as the kernel.
-
-    The float mode's fused multiply-add chain is computed in float64: a
-    product of two float32 values is exact there, so each step rounds
-    once to float32, as a float32 FMA does (up to a double rounding
-    that has not been observed to move a level)."""
-    x = _blocks(plane)
-    q = state.quant.to(plane.device)
+    """Plain PyTorch K1 (any device), the same function as the kernel:
+    level_shift_blocks, dct_float or dct_int, quantize_float or
+    quantize_int, zigzag."""
+    x = level_shift_blocks(plane)
     if int_mode:
-        # broadcast sums, not matmuls: CUDA has no int64 matmul
-        t = state.basis_int.to(device=plane.device, dtype=torch.int64)
-        y1 = ((t[None, :, :, None] * x[:, None, :, :]).sum(2) + _HALF
-              ) >> tables.INT_FRAC  # y1[u, x] = sum_k T[u, k] X[k, x]
-        f = ((y1[:, :, None, :] * t[None, None, :, :]).sum(3) + _HALF
-             ) >> tables.INT_FRAC  # f[u, v] = sum_k y1[u, k] T[v, k]
-        qq = q.to(torch.int64).reshape(8, 8)
-        mag = (2 * f.abs() + qq) // (2 * qq)
-        lv = torch.where(f < 0, -mag, mag)
+        lv = quantize_int(dct_int(x, state.basis_int), state.quant)
     else:
-        t = state.basis.to(plane.device).to(torch.float64)
-        xf = x.to(torch.float64)
-        y = torch.zeros(x.shape, dtype=torch.float32, device=plane.device)
-        for k in range(8):  # y[u, x] = sum_k T[u, k] X[k, x], in order
-            y = (y.to(torch.float64) + t[None, :, k, None] * xf[:, None, k, :]
-                 ).to(torch.float32)
-        z = torch.zeros(x.shape, dtype=torch.float32, device=plane.device)
-        y64 = y.to(torch.float64)
-        for k in range(8):  # z[u, v] = sum_k Y[u, k] T[v, k], in order
-            z = (z.to(torch.float64) + y64[:, :, None, k] * t[None, None, :, k]
-                 ).to(torch.float32)
-        s = z / q.to(torch.float32).reshape(8, 8)
-        lv = s + torch.where(s >= 0, 0.5, -0.5).to(torch.float32)
-    lv = lv.reshape(-1, 64)[:, _ZIGZAG.to(plane.device)]
-    return lv.to(torch.int32).T.contiguous()
+        lv = quantize_float(dct_float(x, state.basis), state.quant)
+    return zigzag(lv).T.contiguous()
