@@ -1,0 +1,8 @@
+"""Share of the traced window in which no kernel, memcpy or memset ran on
+the card: 100 x (1 - union of their intervals / window)."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
