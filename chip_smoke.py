@@ -26,8 +26,8 @@ images of 3024 x 4032 at 4:2:0, which merges its MCU streams by
 jpegtpu's slot-major route: K2, K3, K4, a gather, K6, K8, K11. Then the
 paths that run those kernels in new ways: serving (encode_stream of 16
 distinct 3024 x 4032 images, gray and 4:2:0, at depths 1, 2 and 3: no
-host sync in submit, files equal to single encodes, MPix/s, the card's
-busy share, stage tables, an overflowing image's fallback); sharded
+host sync in submit, files equal to single encodes, MPix/s, the
+program's spans at depths 1 and 2, an overflowing image's fallback); sharded
 (3024 x 4032 gray and 4:2:0 on 4 shards of the card, 1- and 2-pass: K12
 per shard, int32 files equal to the CPU path); multiprocess (two
 processes on the card over gloo, one shard each, started as
@@ -85,7 +85,7 @@ import numpy as np
 import torch
 
 from jpegtpu_torch import (EncodeConfig, _build, batch, color_pipeline,
-                           native, pipeline, tables)
+                           native, pipeline, tables, tracing)
 from jpegtpu_torch.entropy import concat, device, merge, pack, stitch
 from jpegtpu_torch.entropy import host as entropy_host
 from jpegtpu_torch.entropy import treepack
@@ -1144,82 +1144,6 @@ def batch_images_on_card(n: int, h: int, w: int, color: bool,
     return x.clamp(0, 255).to(torch.uint8)
 
 
-def batch_stage_breakdown(images: list, cfg, reps: int = 5) -> dict:
-    """Host-clock milliseconds of each stage of one batch encode (one
-    group, gray or 4:2:0, first rung; 4:2:0 merges with K5 or, where
-    jpegtpu's raw body does not apply, with the slot-major gather and
-    K6), each ended by a synchronize (medians over reps)."""
-    stages = {}
-
-    def mark(name, t0):
-        torch.cuda.synchronize()
-        stages.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
-    n = len(images)
-    h, w = images[0].shape[:2]
-    color = cfg.n_components == 3
-    nbh, nbw = (h // 16, w // 16) if color else (h // 8, w // 8)
-    cap = cfg.capacity_words_per_block
-    ws = batch.segment_width(nbw)
-    for _ in range(reps):
-        t = time.perf_counter()
-        stack = np.stack(images)
-        t = mark("host_stack", t)
-        x = torch.from_numpy(stack).cuda()
-        state = tables.encoder_state(cfg, "cuda")
-        t = mark("h2d_images_and_tables", t)
-        if color:
-            rgb = x.reshape(n * h, w, 3)
-            ly = transform.transform_rgb_y(rgb, state, False)
-            lc = transform.transform_rgb_chroma(rgb, state, False, "420")
-            t = mark("K2_K3_transform", t)
-            dcd = color_pipeline.color_dc_differences(ly, lc, n * nbh, nbw,
-                                                      "420", nbh * nbw)
-            t = mark("dc_differences", t)
-            wy, by = pack.encode_blocks(ly, dcd[0], state.huff, cap)
-            wc, bc = pack.encode_blocks(lc, dcd[1], state.huff_chroma, cap)
-            t = mark("K4_pack_x2", t)
-            if batch.color_raw_ok(h, w, "420", cap):
-                words, bits = merge.merge_mcu(wy, by, wc, bc, n * nbh, nbw,
-                                              "420")
-                over = torch.cat([by, bc]) > cap * 32
-                t = mark("K5_merge_mcu", t)
-            else:  # jpegtpu's slot-major route
-                sm = merge.slot_major_streams(wy, by, wc, bc, n * nbh, nbw,
-                                              "420")
-                t = mark("slot_major_gather", t)
-                words, bits = merge.merge_streams(*sm)
-                over = torch.cat([by, bc]) > cap * 32
-                t = mark("K6_merge_streams", t)
-        else:
-            lv = transform.transform(x.reshape(n * h, w), state, False)
-            t = mark("K1_transform", t)
-            dcd = dc_differences(lv[0], nbh * nbw)
-            t = mark("dc_differences", t)
-            words, bits = pack.encode_blocks(lv, dcd, state.huff, cap)
-            over = bits > cap * 32
-            t = mark("K4_pack", t)
-        segs, seg_bits = concat.merge_rows(words, bits, n * nbh, nbw, ws)
-        t = mark("K8_merge_rows_ws", t)
-        streams, totals = concat.stream_concat_rows(
-            segs, seg_bits, segs.shape[0] // n, words.shape[0] * nbh * nbw,
-            cfg.pad_ones)
-        t = mark("K11_stream_concat_rows_scans_and_pad_inside", t)
-        head = torch.cat([over.any().to(torch.int64).reshape(1),
-                          totals]).tolist()
-        t = mark("d2h_overflow_and_totals", t)
-        nw = (max(head[1:]) + 31) // 32
-        words_np = streams[:, :nw].cpu().numpy().view(np.uint32)
-        t = mark("d2h_valid_words", t)
-        scans = pipeline.segments_from_streams(words_np, head[1:])
-        t = mark("host_stuff_x_images", t)
-        for im, scan in zip(images, scans):
-            pipeline.jfif.assemble(im.shape[1], im.shape[0], cfg, [scan])
-        mark("host_jfif_x_images", t)
-    return {k: float(np.median(v)) for k, v in stages.items()}
-
-
 def batch_phases(dev, say) -> list:
     """The batch main path (M5) at the reference's batch configuration,
     1024 images of 512 x 512, gray and 4:2:0 (bench.py:354-416): K8 at the
@@ -1355,8 +1279,8 @@ def batch_phases(dev, say) -> list:
             first_call_s=first_s, median_s=e2e_med, runs_s=e2e_s,
             mpix_per_s=n * h * w / 1e6 / e2e_med, launches=launches,
             files_equal_single_image=n, single_image_encodes_s=single_s)
-        say("batch_stage_breakdown_ms", path=f"batch_{kind}", shape=shape,
-            **batch_stage_breakdown(images, cfg))
+        say("batch_spans", path=f"batch_{kind}", shape=shape,
+            **traced_call(lambda: encode_batch(images, cfg)))
 
         # --- 19. shared 2-pass tables at the same size -------------------
         cfg2 = dataclasses.replace(cfg, optimize_huffman=True)
@@ -1932,8 +1856,8 @@ def batch_k6_phases(dev, say) -> list:
         bytes=sum(map(len, files)), first_call_s=first_s, median_s=e2e_med,
         runs_s=e2e_s, mpix_per_s=n * h * w / 1e6 / e2e_med,
         launches=launches, files_equal_single_image=n)
-    say("batch_k6_stage_breakdown_ms", shape=[n, h, w, 3],
-        **batch_stage_breakdown(images, cfg))
+    say("batch_k6_spans", shape=[n, h, w, 3],
+        **traced_call(lambda: batch.encode_color_batch(images, cfg)))
     cfg_int = dataclasses.replace(cfg, dct_dtype="int32")
     t0 = time.perf_counter()
     check(batch.encode_color_batch(images[:2], cfg_int)
@@ -2164,100 +2088,20 @@ def reset_launches() -> None:
         _build.LAUNCHES[k] = 0
 
 
-def device_busy(fn) -> dict:
-    """One call of fn under torch.profiler: its wall seconds and the share
-    of them the card spent in kernels and in kernels plus copies (the sum
-    of their device times over the wall time; the profiler's own cost is
-    in the wall time)."""
-    from torch.profiler import ProfilerActivity, profile
+def traced_call(fn) -> dict:
+    """One call of an entry point under tracing.recording(): its wall
+    seconds and the program's spans and counters (tracing.totals()), in
+    milliseconds."""
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ev = [(e.key, e.device_time_total) for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    except Exception as e:  # the profiler itself failed on this machine
-        return {"profiler_error": repr(e)}
-    if not ev:
-        return {"note": "the profiler shows no device events"}
-    copies = sum(us for k, us in ev if "Memcpy" in k or "Memset" in k)
-    kernels = sum(us for _, us in ev) - copies
-    return {"wall_s": wall, "kernel_ms": kernels / 1e3,
-            "copy_ms": copies / 1e3,
-            "busy_share_kernels": kernels / 1e6 / wall,
-            "busy_share_kernels_and_copies": (kernels + copies) / 1e6 / wall}
-
-
-def serving_stage_breakdown(images, cfg, color: bool, depth: int,
-                            split_pad: bool) -> dict:
-    """Host-clock milliseconds of a serving stream's stages, summed over
-    its images, with encode_stream's loop written out: submit (its
-    edge-pad into pinned memory apart, split over the server's copying
-    threads as encode_stream does, or on the loop's thread), and finish's
-    wait for the head, read of the valid words, stuffing and JFIF join;
-    and the wall. No synchronize between stages: the card runs while the
-    host works."""
-    from collections import deque
-
-    from jpegtpu_torch import serving
-    st = dict.fromkeys(("submit_pad_into_pinned", "submit_queue",
-                        "finish_wait_head", "finish_d2h_valid_words",
-                        "finish_host_stuff", "finish_host_jfif"), 0.0)
-    pad_into = serving.pad_into
-
-    def timed_pad(dst, image, pool=None):
-        t = time.perf_counter()
-        pad_into(dst, image, pool)
-        st["submit_pad_into_pinned"] += time.perf_counter() - t
-
-    def finish(pend, image):
-        t = time.perf_counter()
-        pend["done"].synchronize()
-        overflowed, count = pend["head"].tolist()
-        check(not overflowed, "serving stages: overflowed rung 8")
-        t = tick("finish_wait_head", t)
-        server.reader.wait_event(pend["done"])
-        with torch.cuda.stream(server.reader):
-            words = pend["stream"][:(count + 31) // 32].cpu().numpy()
-        t = tick("finish_d2h_valid_words", t)
-        scan = pipeline.segments_from_streams(words.view(np.uint32)[None],
-                                              [count])[0]
-        t = tick("finish_host_stuff", t)
-        pipeline.jfif.assemble(pend["w"], pend["h"], cfg, [scan])
-        tick("finish_host_jfif", t)
-
-    def tick(name, t):
-        now = time.perf_counter()
-        st[name] += now - t
-        return now
-
-    server = serving._Server(cfg, color, depth, torch.device("cuda"))
-    if not split_pad:
-        server.copiers.shutdown()
-        server.copiers = None
-    serving.pad_into = timed_pad
-    try:
-        torch.cuda.synchronize()
-        t_all = time.perf_counter()
-        queue = deque()
-        for image in images:
-            t = time.perf_counter()
-            queue.append((server.submit(image), image))
-            tick("submit_queue", t)
-            if len(queue) >= depth:
-                finish(*queue.popleft())
-        while queue:
-            finish(*queue.popleft())
-        wall = time.perf_counter() - t_all
-    finally:
-        serving.pad_into = pad_into
-        server.close()
-    st["submit_queue"] -= st["submit_pad_into_pinned"]
-    return {**{k: v * 1e3 for k, v in st.items()}, "wall": wall * 1e3,
-            "images": len(images)}
+    with tracing.recording():
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    t = tracing.totals()
+    return {"wall_s": wall, "root_ms": t["root_ns"] / 1e6,
+            "counts": t["counts"],
+            "self_ms": {k: v["self_ns"] / 1e6 for k, v in t["spans"].items()},
+            "calls": {k: v["calls"] for k, v in t["spans"].items()}}
 
 
 def serving_phases(dev, say) -> list:
@@ -2309,23 +2153,10 @@ def serving_phases(dev, say) -> list:
                              "median_ms": float(np.median(v)) * 1e3,
                              "mpix_per_s": mpix / float(np.median(v))}
                for d, v in walls.items()})
-        say(f"{path}_device_busy", **{
-            f"depth{d}": device_busy(lambda d=d: serving.encode_stream_list(
-                images, cfg, color=color, depth=d)) for d in (1, 2, 3)})
-        # the loop's stages, its pad copy split or not, in turns;
-        # medians of 3
-        runs = {}
-        for _ in range(3):
-            for split_pad in (False, True):
-                for depth in (1, 2):
-                    runs.setdefault((split_pad, depth), []).append(
-                        serving_stage_breakdown(images, cfg, color, depth,
-                                                split_pad))
-        for (split_pad, depth), rs in runs.items():
-            say(f"{path}_stage_breakdown_ms", depth=depth,
-                pad_split_over_threads=split_pad,
-                runs=len(rs), **{k: float(np.median([r[k] for r in rs]))
-                                 for k in rs[0]})
+        for depth in (1, 2):
+            say(f"{path}_spans", depth=depth, **traced_call(
+                lambda d=depth: serving.encode_stream_list(
+                    images, cfg, color=color, depth=d)))
         # a Q100 noise image past rung 8 in a stream: the blocking ladder
         # for it, then its site's next submission at the rung that fit
         cfg100 = dataclasses.replace(cfg, quality=100)

@@ -18,18 +18,13 @@ import threading
 
 import torch
 
+from .tracing import LAUNCHES, span
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "jpegtpu_torch")
 
 KERNEL_SOURCES = ("transform", "pack", "merge", "concat", "stitch")
-
-# Launches per kernel since the last reset, counted where each wrapper
-# launches its kernel (and nowhere else).
-LAUNCHES = {"transform": 0, "transform_rgb_y": 0, "transform_rgb_chroma": 0,
-            "encode_blocks": 0, "pack_blocks": 0, "merge_mcu": 0,
-            "merge_streams": 0, "merge_rows": 0, "stream_concat": 0, "stream_concat_chunked": 0,
-            "stream_concat_rows": 0, "stitch_scan": 0, "stitch_segments": 0}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -116,15 +111,16 @@ def _lib(name: str):
 def launch(source: str, kernel: str, argtypes, *args, device) -> None:
     """Call C entry `jt_<kernel>` of csrc/<source>.cu on the current CUDA
     stream of `device` (appended as the last argument), raise if it
-    reports a CUDA error, and count the launch."""
-    fn = getattr(_lib(source), f"jt_{kernel}")
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
-                           f"cudaError {err}")
-    LAUNCHES[kernel] += 1
+    reports a CUDA error, and count the launch (tracing.LAUNCHES)."""
+    with span("kernel.launch"):
+        fn = getattr(_lib(source), f"jt_{kernel}")
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                               f"cudaError {err}")
+        LAUNCHES[kernel] += 1
 
 
 def query(source: str, fn: str, argtypes, *args) -> int:

@@ -61,6 +61,7 @@ from .ops.transform import transform, transform_rgb_chroma, transform_rgb_y
 from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
                        kernel_cap, optimal_tables, resolve_device,
                        segments_from_streams)
+from .tracing import count, span
 
 # jpegtpu's transform tile height in pixels (pallas_transform.TILE_H), which
 # its table-sharing rule counts in.
@@ -154,21 +155,26 @@ def _encode_stacks(parts, caps, nbh: int, nbw: int, pad_ones: bool):
     Returns every image's stuffed scan, in order, or None when every rung
     overflowed."""
     ws = segment_width(nbw)
+    count("batch.groups")
     for cap in caps:
+        count("orch.rungs")
         outs = []
-        for streams_at, n_images in parts:
-            words, bits, overflow = streams_at(cap)
-            streams, totals = concat_segments(words, bits, n_images * nbh,
-                                              nbw, n_images, ws, pad_ones)
-            outs.append((streams, torch.cat(
-                [overflow.any().to(torch.int64).reshape(1), totals])))
-        heads = [head.tolist() for _, head in outs]
+        with span("orch.entropy"):
+            for streams_at, n_images in parts:
+                words, bits, overflow = streams_at(cap)
+                streams, totals = concat_segments(words, bits, n_images * nbh,
+                                                  nbw, n_images, ws, pad_ones)
+                outs.append((streams, torch.cat(
+                    [overflow.any().to(torch.int64).reshape(1), totals])))
+        with span("orch.wait"):
+            heads = [head.tolist() for _, head in outs]
         if any(h[0] for h in heads):
             continue
         scans = []
         for (streams, _), h in zip(outs, heads):
             nwords = (max(h[1:]) + 31) // 32
-            words_np = streams[:, :nwords].cpu().numpy().view(np.uint32)
+            with span("io.readback"):
+                words_np = streams[:, :nwords].cpu().numpy().view(np.uint32)
             scans += segments_from_streams(words_np, h[1:])
         return scans
     return None
@@ -184,23 +190,31 @@ def _gray_group(images: list, ph: int, pw: int, config: EncodeConfig,
     nbh, nbw = ph // 8, pw // 8
     fronts = []
     for dev, lo, hi in _shares(len(images), devs, nbw):
-        stack = np.stack([pad_edge(image) for image in images[lo:hi]])
-        plane = torch.from_numpy(stack).to(dev).reshape(
-            (hi - lo) * ph, *stack.shape[2:])
-        if plane.dim() == 3:
-            plane = color.rgb_to_y_reference(plane)
-        state = tables.encoder_state(config, dev)
-        levels = transform(plane.contiguous(), state,
-                           config.dct_dtype == "int32")
-        fronts.append((levels, dc_differences(levels[0], nbh * nbw),
-                       state.huff, hi - lo))
+        with span("io.pad"):  # lives to the group's end: see _color_group
+            padded = [pad_edge(image) for image in images[lo:hi]]
+        with span("io.stack"):
+            stack = np.stack(padded)
+        with span("io.upload"):
+            plane = torch.from_numpy(stack).to(dev).reshape(
+                (hi - lo) * ph, *stack.shape[2:])
+        with span("orch.tables"):
+            state = tables.encoder_state(config, dev)
+        with span("orch.front"):
+            if plane.dim() == 3:
+                plane = color.rgb_to_y_reference(plane)
+            levels = transform(plane.contiguous(), state,
+                               config.dct_dtype == "int32")
+            fronts.append((levels, dc_differences(levels[0], nbh * nbw),
+                           state.huff, hi - lo))
     specs, caps = None, capacity_ladder(config)
     if config.optimize_huffman:
         # one set of tables from the counts of every share
-        specs, (huff,) = optimal_tables(
-            sum(symbol_histograms(lv, d).cpu() for lv, d, _, _ in fronts),
-            ("lum",), "cpu")
-        fronts = [(lv, d, huff.to(lv.device), b) for lv, d, _, b in fronts]
+        with span("orch.tables"):
+            specs, (huff,) = optimal_tables(
+                sum(symbol_histograms(lv, d).cpu() for lv, d, _, _ in fronts),
+                ("lum",), "cpu")
+            fronts = [(lv, d, huff.to(lv.device), b)
+                      for lv, d, _, b in fronts]
         caps = itertools.takewhile(
             lambda cap: shares_gray_tables(ph, pw, cap), caps)
 
@@ -219,9 +233,10 @@ def _gray_group(images: list, ph: int, pw: int, config: EncodeConfig,
         # past the shared rungs jpegtpu gives each image its own tables
         return [encode_grayscale(image, config, device=devs[0])
                 for image in images]
-    return [jfif.assemble(image.shape[1], image.shape[0], config, [scan],
-                          huffman_specs=specs)
-            for image, scan in zip(images, scans)]
+    with span("io.jfif"):
+        return [jfif.assemble(image.shape[1], image.shape[0], config, [scan],
+                              huffman_specs=specs)
+                for image, scan in zip(images, scans)]
 
 
 def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
@@ -237,29 +252,38 @@ def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
     int_mode = config.dct_dtype == "int32"
     fronts = []
     for dev, lo, hi in _shares(len(images), devs, nmcw):
-        stack = np.stack([
-            pad_edge(np.repeat(image[..., None], 3, axis=-1)
-                     if image.ndim == 2 else image, *mcu_dims(ss))
-            for image in images[lo:hi]
-        ])
+        # `padded` lives to the group's end: freed right after np.stack,
+        # glibc handed the heap back to the OS and the next group's pads
+        # faulted it in again (1.5-2.5x slower pads on an H100's host;
+        # PERF.md)
+        with span("io.pad"):
+            padded = [pad_edge(np.repeat(image[..., None], 3, axis=-1)
+                               if image.ndim == 2 else image, *mcu_dims(ss))
+                      for image in images[lo:hi]]
+        with span("io.stack"):
+            stack = np.stack(padded)
         b = hi - lo
-        rgb = torch.from_numpy(stack).to(dev).reshape(b * ph, pw, 3)
-        state = tables.encoder_state(config, dev)
-        luma = transform_rgb_y(rgb, state, int_mode)
-        chroma = transform_rgb_chroma(rgb, state, int_mode, ss)
-        dcd = color_dc_differences(luma, chroma, b * nmch, nmcw, ss,
-                                   nmch * nmcw)
+        with span("io.upload"):
+            rgb = torch.from_numpy(stack).to(dev).reshape(b * ph, pw, 3)
+        with span("orch.tables"):
+            state = tables.encoder_state(config, dev)
+        with span("orch.front"):
+            luma = transform_rgb_y(rgb, state, int_mode)
+            chroma = transform_rgb_chroma(rgb, state, int_mode, ss)
+            dcd = color_dc_differences(luma, chroma, b * nmch, nmcw, ss,
+                                       nmch * nmcw)
         fronts.append((luma, chroma, dcd, state, b))
     specs, caps = None, capacity_ladder(config)
     if config.optimize_huffman:
         # one set of tables from the counts of every share
-        specs, (hl, hc) = optimal_tables(
-            sum(symbol_histograms(lu, d[0], 0).cpu()
-                + symbol_histograms(ch, d[1], 1).cpu()
-                for lu, ch, d, _, _ in fronts), ("lum", "chrom"), "cpu")
-        fronts = [(lu, ch, d, st._replace(huff=hl.to(lu.device),
-                                          huff_chroma=hc.to(lu.device)), b)
-                  for lu, ch, d, st, b in fronts]
+        with span("orch.tables"):
+            specs, (hl, hc) = optimal_tables(
+                sum(symbol_histograms(lu, d[0], 0).cpu()
+                    + symbol_histograms(ch, d[1], 1).cpu()
+                    for lu, ch, d, _, _ in fronts), ("lum", "chrom"), "cpu")
+            fronts = [(lu, ch, d, st._replace(huff=hl.to(lu.device),
+                                              huff_chroma=hc.to(lu.device)),
+                       b) for lu, ch, d, st, b in fronts]
         caps = itertools.takewhile(
             lambda cap: color_raw_ok(ph, pw, ss, cap), caps)
 
@@ -279,9 +303,10 @@ def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
         # past the shared rung jpegtpu gives each image its own tables
         return [encode_color(image, config, device=devs[0])
                 for image in images]
-    return [jfif.assemble(image.shape[1], image.shape[0], config, [scan],
-                          huffman_specs=specs)
-            for image, scan in zip(images, scans)]
+    with span("io.jfif"):
+        return [jfif.assemble(image.shape[1], image.shape[0], config, [scan],
+                              huffman_specs=specs)
+                for image, scan in zip(images, scans)]
 
 
 def encode_grayscale_batch(images: list, config: EncodeConfig | None = None,
@@ -294,20 +319,23 @@ def encode_grayscale_batch(images: list, config: EncodeConfig | None = None,
     group's images split across, as jpegtpu splits its batch axis, with
     shared 2-pass tables from the counts of every share; the files do not
     change."""
-    config = config or EncodeConfig()
-    devs = _prepare(images, config, mesh, 1, device)
-    if config.restart_interval or config.entropy != "device":
-        return [encode_grayscale(image, config, device=devs[0])
-                for image in images]
-    out: list = [None] * len(images)
-    groups = _groups(images, lambda image: (
-        -(-image.shape[0] // 8) * 8, -(-image.shape[1] // 8) * 8,
-        image.ndim == 3))
-    for (ph, pw, _), idxs in groups.items():
-        files = _gray_group([images[i] for i in idxs], ph, pw, config, devs)
-        for i, data in zip(idxs, files):
-            out[i] = data
-    return out
+    with span("entry.batch"):
+        config = config or EncodeConfig()
+        devs = _prepare(images, config, mesh, 1, device)
+        if config.restart_interval or config.entropy != "device":
+            return [encode_grayscale(image, config, device=devs[0])
+                    for image in images]
+        out: list = [None] * len(images)
+        groups = _groups(images, lambda image: (
+            -(-image.shape[0] // 8) * 8, -(-image.shape[1] // 8) * 8,
+            image.ndim == 3))
+        for (ph, pw, _), idxs in groups.items():
+            with span("batch.group"):
+                files = _gray_group([images[i] for i in idxs], ph, pw, config,
+                                    devs)
+            for i, data in zip(idxs, files):
+                out[i] = data
+        return out
 
 
 def encode_color_batch(images: list, config: EncodeConfig | None = None,
@@ -316,18 +344,21 @@ def encode_color_batch(images: list, config: EncodeConfig | None = None,
     as baseline YCbCr JFIF byte strings, in input order, byte-identical to
     jpegtpu's batch.encode_color_batch. The default config is 4:2:0 at
     Q50. mesh as in encode_grayscale_batch."""
-    config = config or EncodeConfig(subsampling="420")
-    devs = _prepare(images, config, mesh, 3, device)
-    if config.restart_interval or config.entropy != "device":
-        return [encode_color(image, config, device=devs[0])
-                for image in images]
-    out: list = [None] * len(images)
-    # 2-D and RGB images of one padded shape share a group (both encode
-    # as RGB), as in jpegtpu
-    groups = _groups(images, lambda image: padded_dims_color(
-        *image.shape[:2], config.subsampling))
-    for (ph, pw), idxs in groups.items():
-        files = _color_group([images[i] for i in idxs], ph, pw, config, devs)
-        for i, data in zip(idxs, files):
-            out[i] = data
-    return out
+    with span("entry.batch"):
+        config = config or EncodeConfig(subsampling="420")
+        devs = _prepare(images, config, mesh, 3, device)
+        if config.restart_interval or config.entropy != "device":
+            return [encode_color(image, config, device=devs[0])
+                    for image in images]
+        out: list = [None] * len(images)
+        # 2-D and RGB images of one padded shape share a group (both
+        # encode as RGB), as in jpegtpu
+        groups = _groups(images, lambda image: padded_dims_color(
+            *image.shape[:2], config.subsampling))
+        for (ph, pw), idxs in groups.items():
+            with span("batch.group"):
+                files = _color_group([images[i] for i in idxs], ph, pw,
+                                     config, devs)
+            for i, data in zip(idxs, files):
+                out[i] = data
+        return out

@@ -50,6 +50,7 @@ from .parallel import multihost, sharding
 from .pipeline import (_check_image, capacity_ladder, finish_streams,
                        host_scan, kernel_cap, optimal_tables, record_cap,
                        resolve_device)
+from .tracing import span
 
 
 @functools.lru_cache(maxsize=64)
@@ -94,16 +95,20 @@ def component_levels(image: np.ndarray, config: EncodeConfig,
         raise ValueError("encode_color needs a color subsampling "
                          "(420, 422 or 444); use encode_grayscale for gray")
     _check_image(image)
-    if image.ndim == 2:
-        image = np.repeat(image[..., None], 3, axis=-1)
-    padded = np.ascontiguousarray(
-        pad_edge(image, *mcu_dims(config.subsampling)))
-    rgb = torch.from_numpy(padded).to(dev)
-    state = tables.encoder_state(config, dev)
+    with span("io.pad"):
+        if image.ndim == 2:
+            image = np.repeat(image[..., None], 3, axis=-1)
+        padded = np.ascontiguousarray(
+            pad_edge(image, *mcu_dims(config.subsampling)))
+    with span("io.upload"):
+        rgb = torch.from_numpy(padded).to(dev)
+    with span("orch.tables"):
+        state = tables.encoder_state(config, dev)
     int_mode = config.dct_dtype == "int32"
-    return (transform_rgb_y(rgb, state, int_mode),
-            transform_rgb_chroma(rgb, state, int_mode, config.subsampling),
-            state, padded.shape[:2])
+    with span("orch.front"):
+        return (transform_rgb_y(rgb, state, int_mode),
+                transform_rgb_chroma(rgb, state, int_mode, config.subsampling),
+                state, padded.shape[:2])
 
 
 def color_coefficients(image: np.ndarray, config: EncodeConfig | None = None,
@@ -127,20 +132,25 @@ def encode_color(image: np.ndarray, config: EncodeConfig | None = None,
     """Encode an image (uint8 [H, W, 3] RGB, or [H, W] gray promoted to
     RGB) as a baseline YCbCr JFIF byte string, byte-identical to
     jpegtpu's. The default config is 4:2:0 at Q50."""
-    config = config or EncodeConfig(subsampling="420")
-    dev = resolve_device(device)
-    h, w = image.shape[:2]
-    if config.entropy == "host":
-        zz, table_sel, comp_id = color_coefficients(image, config, device=dev)
-        segments, specs = host_scan(
-            zz, config, ("lum", "chrom"), table_sel.astype(np.int64),
-            comp_id, slots_per_mcu(config.subsampling))
-        return jfif.assemble(w, h, config, segments, huffman_specs=specs)
-    ly, lc, state, (ph, pw) = component_levels(image, config, dev)
-    fy, fx = sampling_factors(config.subsampling)
-    scan, specs = color_scan(ly, lc, state, ph // (8 * fy), pw // (8 * fx),
-                             config, key=(ph, pw, config, "color"))
-    return jfif.assemble(w, h, config, [scan], huffman_specs=specs)
+    with span("entry.single"):
+        config = config or EncodeConfig(subsampling="420")
+        dev = resolve_device(device)
+        h, w = image.shape[:2]
+        if config.entropy == "host":
+            zz, table_sel, comp_id = color_coefficients(image, config,
+                                                        device=dev)
+            segments, specs = host_scan(
+                zz, config, ("lum", "chrom"), table_sel.astype(np.int64),
+                comp_id, slots_per_mcu(config.subsampling))
+        else:
+            ly, lc, state, (ph, pw) = component_levels(image, config, dev)
+            fy, fx = sampling_factors(config.subsampling)
+            scan, specs = color_scan(ly, lc, state, ph // (8 * fy),
+                                     pw // (8 * fx), config,
+                                     key=(ph, pw, config, "color"))
+            segments = [scan]
+        with span("io.jfif"):
+            return jfif.assemble(w, h, config, segments, huffman_specs=specs)
 
 
 def color_scan(luma: torch.Tensor, chroma: torch.Tensor,
@@ -152,11 +162,13 @@ def color_scan(luma: torch.Tensor, chroma: torch.Tensor,
     with optimize_huffman pass 1 counts the luma blocks' symbols into the
     luminance classes and the chroma blocks' into the chrominance ones,
     and pass 2 encodes the same levels with the four optimal tables."""
-    dcd = color_dc_differences(luma, chroma, nmch, nmcw, config.subsampling,
-                               config.restart_interval)
+    with span("orch.front"):
+        dcd = color_dc_differences(luma, chroma, nmch, nmcw,
+                                   config.subsampling, config.restart_interval)
     specs = None
     if config.optimize_huffman:
-        specs, state = color_tables(luma, chroma, dcd, state)
+        with span("orch.tables"):
+            specs, state = color_tables(luma, chroma, dcd, state)
     return encode_color_levels(luma, chroma, state, nmch, nmcw, config, key,
                                dcd), specs
 
@@ -196,13 +208,17 @@ def encode_color_levels(luma: torch.Tensor, chroma: torch.Tensor,
     overflow. The tables are state.huff and state.huff_chroma. `key`
     names the encode site for capacity_ladder."""
     if dcd is None:
-        dcd = color_dc_differences(luma, chroma, nmch, nmcw,
-                                   config.subsampling, config.restart_interval)
+        with span("orch.front"):
+            dcd = color_dc_differences(luma, chroma, nmch, nmcw,
+                                       config.subsampling,
+                                       config.restart_interval)
     ss = config.subsampling
     for cap in capacity_ladder(config, key):
-        scan = finish_streams(*mcu_streams(luma, chroma, dcd, state, nmch,
-                                           nmcw, ss, kernel_cap(cap)),
-                              nmch, nmcw, config, slots_per_mcu(ss) * cap)
+        with span("orch.entropy"):  # the waits and reads inside are spans
+            scan = finish_streams(*mcu_streams(luma, chroma, dcd, state,
+                                               nmch, nmcw, ss,
+                                               kernel_cap(cap)),
+                                  nmch, nmcw, config, slots_per_mcu(ss) * cap)
         if scan is not None:
             record_cap(key, cap)
             return scan

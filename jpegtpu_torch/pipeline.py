@@ -49,6 +49,7 @@ from .io import bmp, jfif
 from .ops import color
 from .ops.blocks import pad_edge
 from .ops.transform import transform
+from .tracing import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,11 +81,15 @@ def _levels(image: np.ndarray, config: EncodeConfig, dev: torch.device):
         raise ValueError(f"subsampling={config.subsampling!r} is a color "
                          "config: use encode_color")
     _check_image(image)
-    padded = np.ascontiguousarray(pad_edge(image))
-    x = torch.from_numpy(padded).to(dev)
-    y = color.rgb_to_y_reference(x) if image.ndim == 3 else x
-    state = tables.encoder_state(config, dev)
-    levels = transform(y.contiguous(), state, config.dct_dtype == "int32")
+    with span("io.pad"):
+        padded = np.ascontiguousarray(pad_edge(image))
+    with span("io.upload"):
+        x = torch.from_numpy(padded).to(dev)
+    with span("orch.tables"):
+        state = tables.encoder_state(config, dev)
+    with span("orch.front"):
+        y = color.rgb_to_y_reference(x) if image.ndim == 3 else x
+        levels = transform(y.contiguous(), state, config.dct_dtype == "int32")
     return levels, state, padded.shape[0] // 8, padded.shape[1] // 8
 
 
@@ -103,17 +108,20 @@ def encode_grayscale(image: np.ndarray, config: EncodeConfig | None = None,
                      *, device=None) -> bytes:
     """Encode an image (uint8 [H, W] or [H, W, 3] RGB) as a baseline
     grayscale JFIF byte string, byte-identical to jpegtpu's."""
-    config = config or EncodeConfig()
-    dev = resolve_device(device)
-    h, w = image.shape[:2]
-    if config.entropy == "host":
-        zz = grayscale_coefficients(image, config, device=dev)
-        segments, specs = host_scan(zz, config, ("lum",))
-        return jfif.assemble(w, h, config, segments, huffman_specs=specs)
-    levels, state, nbh, nbw = _levels(image, config, dev)
-    scan, specs = gray_scan(levels, state, nbh, nbw, config,
-                            key=(nbh, nbw, config, image.ndim == 3))
-    return jfif.assemble(w, h, config, [scan], huffman_specs=specs)
+    with span("entry.single"):
+        config = config or EncodeConfig()
+        dev = resolve_device(device)
+        h, w = image.shape[:2]
+        if config.entropy == "host":
+            zz = grayscale_coefficients(image, config, device=dev)
+            segments, specs = host_scan(zz, config, ("lum",))
+        else:
+            levels, state, nbh, nbw = _levels(image, config, dev)
+            scan, specs = gray_scan(levels, state, nbh, nbw, config,
+                                    key=(nbh, nbw, config, image.ndim == 3))
+            segments = [scan]
+        with span("io.jfif"):
+            return jfif.assemble(w, h, config, segments, huffman_specs=specs)
 
 
 def gray_scan(levels: torch.Tensor, state: tables.EncoderState, nbh: int,
@@ -123,11 +131,13 @@ def gray_scan(levels: torch.Tensor, state: tables.EncoderState, nbh: int,
     differences are computed once; with optimize_huffman pass 1 counts
     the symbols of exactly these levels and differences, and pass 2
     encodes them with the optimal tables."""
-    dcd = dc_differences(levels[0], config.restart_interval)
+    with span("orch.front"):
+        dcd = dc_differences(levels[0], config.restart_interval)
     huff, specs = state.huff, None
     if config.optimize_huffman:
-        specs, (huff,) = optimal_tables(symbol_histograms(levels, dcd),
-                                        ("lum",), levels.device)
+        with span("orch.tables"):
+            specs, (huff,) = optimal_tables(symbol_histograms(levels, dcd),
+                                            ("lum",), levels.device)
     return encode_levels(levels, huff, nbh, nbw, config, key, dcd), specs
 
 
@@ -179,12 +189,14 @@ def encode_levels(levels: torch.Tensor, huff: torch.Tensor, nbh: int,
     capacity ladder on overflow. `key` names the encode site for
     capacity_ladder."""
     if dcd is None:
-        dcd = dc_differences(levels[0], config.restart_interval)
+        with span("orch.front"):
+            dcd = dc_differences(levels[0], config.restart_interval)
     for cap in capacity_ladder(config, key):
         kcap = kernel_cap(cap)
-        words, bits = encode_blocks(levels, dcd, huff, kcap)
-        scan = finish_streams(words, bits, bits > kcap * 32, nbh, nbw,
-                              config, cap)
+        with span("orch.entropy"):  # the waits and reads inside are spans
+            words, bits = encode_blocks(levels, dcd, huff, kcap)
+            scan = finish_streams(words, bits, bits > kcap * 32, nbh, nbw,
+                                  config, cap)
         if scan is not None:
             record_cap(key, cap)
             return scan
@@ -236,7 +248,8 @@ def finish_scan(words: torch.Tensor, bits: torch.Tensor,
     (stuff_bytes_device) and only the stuffed bytes are read back."""
     stream, head = scan_stream(words, bits, overflow, nbh, nbw, pad_ones,
                                rung_words, stuff_on_device)
-    overflowed, count = head.tolist()
+    with span("orch.wait"):
+        overflowed, count = head.tolist()
     if overflowed:
         return None
     return read_scan(stream, count, stuff_on_device)
@@ -260,10 +273,11 @@ def read_scan(stream: torch.Tensor, count: int,
               stuff_on_device: bool = False) -> bytes:
     """The host half of finish_scan: one readback of the valid prefix of
     a scan_stream (count: its head's total) -> stuffed scan bytes."""
-    if stuff_on_device:
-        return stream[:count].cpu().numpy().tobytes()
-    nwords = (count + 31) // 32
-    words_np = stream[:nwords].cpu().numpy().view(np.uint32)
+    with span("io.readback"):
+        if stuff_on_device:
+            return stream[:count].cpu().numpy().tobytes()
+        nwords = (count + 31) // 32
+        words_np = stream[:nwords].cpu().numpy().view(np.uint32)
     return segments_from_streams(words_np[None], [count])[0]
 
 
@@ -272,13 +286,14 @@ def segments_from_streams(streams: np.ndarray, totals) -> list:
     uint32 holding each stream's bits from word 0, and total bits [B]
     (padded to the byte) -> the stuffed bytes of each stream."""
     out = []
-    for words, total_bits in zip(streams, totals):
-        words = words[: (total_bits + 31) // 32]
-        if native.available():
-            out.append(native.words_to_stuffed(words, total_bits))
-        else:
-            raw = np.frombuffer(words.astype(">u4").tobytes(), np.uint8)
-            out.append(entropy_host.stuff_bytes(raw[: total_bits // 8]))
+    with span("io.stuff"):
+        for words, total_bits in zip(streams, totals):
+            words = words[: (total_bits + 31) // 32]
+            if native.available():
+                out.append(native.words_to_stuffed(words, total_bits))
+            else:
+                raw = np.frombuffer(words.astype(">u4").tobytes(), np.uint8)
+                out.append(entropy_host.stuff_bytes(raw[: total_bits // 8]))
     return out
 
 
@@ -291,15 +306,17 @@ def finish_restart_scan(words: torch.Tensor, bits: torch.Tensor,
     and the segment totals -> the RST-delimited stuffed scan; None if
     `overflow` holds anywhere."""
     stream, seg_tot, total = stitch_segments(words, bits, seg_len, pad_ones)
-    overflowed, total_bits = torch.stack(
-        [overflow.any().to(torch.int64), total]
-    ).tolist()
+    head = torch.stack([overflow.any().to(torch.int64), total])
+    with span("orch.wait"):
+        overflowed, total_bits = head.tolist()
     if overflowed:
         return None
     nwords = (total_bits + 31) // 32
-    host = torch.cat([stream[:nwords], seg_tot]).cpu().numpy()
-    return entropy_host.scan_from_words(host[:nwords].view(np.uint32),
-                                        host[nwords:].astype(np.int64) // 8)
+    with span("io.readback"):
+        host = torch.cat([stream[:nwords], seg_tot]).cpu().numpy()
+    with span("io.stuff"):
+        return entropy_host.scan_from_words(
+            host[:nwords].view(np.uint32), host[nwords:].astype(np.int64) // 8)
 
 
 _CAP_HISTORY_MAX = 4096

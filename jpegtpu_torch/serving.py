@@ -55,6 +55,7 @@ from .ops.blocks import (pad_into, padded_dims_color, sampling_factors,
 from .ops.transform import transform, transform_rgb_chroma, transform_rgb_y
 from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
                        kernel_cap, read_scan, resolve_device, scan_stream)
+from .tracing import span
 
 _COPY_THREADS = 4  # host threads that edge-pad an image into pinned memory
 
@@ -73,7 +74,8 @@ class _Slot:
         """The image buffer viewed as `shape`, once its last copy to the
         card has completed."""
         if self.copied is not None:
-            self.copied.synchronize()
+            with span("orch.wait"):
+                self.copied.synchronize()
         n = int(np.prod(shape))
         if self.image.numel() < n:
             self.image = torch.empty(n, dtype=torch.uint8, pin_memory=True)
@@ -96,7 +98,8 @@ class _Server:
         if self.cuda:
             self.stream = torch.cuda.Stream(dev)
             self.reader = torch.cuda.Stream(dev)
-        with self._on(self.stream if self.cuda else None):
+        with self._on(self.stream if self.cuda else None), \
+                span("orch.tables"):
             self.state = tables.encoder_state(config, dev)
         if self.cuda:
             self.stream.synchronize()
@@ -109,20 +112,27 @@ class _Server:
         """Edge-pad the image to `shape` and copy it to the card (on the
         loop's stream, from pinned memory, without waiting)."""
         if not self.cuda:
-            dst = np.empty(shape, np.uint8)
-            pad_into(dst, image)
+            with span("io.pad"):
+                dst = np.empty(shape, np.uint8)
+                pad_into(dst, image)
             return torch.from_numpy(dst)
         staging = slot.staging(shape)
-        pad_into(staging.numpy(), image, self.copiers)
-        x = torch.empty(shape, dtype=torch.uint8, device=self.dev)
-        x.copy_(staging, non_blocking=True)
-        slot.copied = torch.cuda.Event()
-        slot.copied.record(self.stream)
+        with span("io.pad"):  # the copying threads' bands, waited for
+            pad_into(staging.numpy(), image, self.copiers)
+        with span("io.upload"):
+            x = torch.empty(shape, dtype=torch.uint8, device=self.dev)
+            x.copy_(staging, non_blocking=True)
+            slot.copied = torch.cuda.Event()
+            slot.copied.record(self.stream)
         return x
 
     def submit(self, image: np.ndarray) -> dict:
         """Queue one image's encode at its site's first rung. No host
         sync."""
+        with span("serve.submit"):
+            return self._submit(image)
+
+    def _submit(self, image: np.ndarray) -> dict:
         _check_image(image)
         slot = self.slots[self.n % len(self.slots)] if self.cuda else None
         self.n += 1
@@ -134,13 +144,13 @@ class _Server:
                 ph, pw = padded_dims_color(h, w, ss)
                 cap = capacity_ladder(cfg, (ph, pw, cfg, "color"))[0]
                 rgb = self._upload(image, (ph, pw, 3), slot)
-                luma = transform_rgb_y(rgb, state, self.int_mode)
-                chroma = transform_rgb_chroma(rgb, state, self.int_mode, ss)
                 fy, fx = sampling_factors(ss)
                 nbh, nbw = ph // (8 * fy), pw // (8 * fx)
-                dcd = color_dc_differences(luma, chroma, nbh, nbw, ss)
-                words, bits, overflow = mcu_streams(
-                    luma, chroma, dcd, state, nbh, nbw, ss, kernel_cap(cap))
+                with span("orch.front"):
+                    luma = transform_rgb_y(rgb, state, self.int_mode)
+                    chroma = transform_rgb_chroma(rgb, state, self.int_mode,
+                                                  ss)
+                    dcd = color_dc_differences(luma, chroma, nbh, nbw, ss)
                 rung = slots_per_mcu(ss) * cap
             else:
                 ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
@@ -148,21 +158,29 @@ class _Server:
                 cap = capacity_ladder(
                     cfg, (nbh, nbw, cfg, image.ndim == 3))[0]
                 x = self._upload(image, (ph, pw, *image.shape[2:]), slot)
-                y = color_ops.rgb_to_y_reference(x) if image.ndim == 3 else x
-                levels = transform(y.contiguous(), state, self.int_mode)
-                kcap = kernel_cap(cap)
-                words, bits = encode_blocks(levels, dc_differences(levels[0]),
-                                            state.huff, kcap)
-                overflow, rung = bits > kcap * 32, cap
-            stream, head = scan_stream(words, bits, overflow, nbh, nbw,
-                                       cfg.pad_ones, rung,
-                                       self.stuff_on_device)
-            pend = {"stream": stream, "w": w, "h": h, "head": head}
-            if self.cuda:
-                slot.head.copy_(head, non_blocking=True)
-                pend["head"] = slot.head
-                pend["done"] = torch.cuda.Event()
-                pend["done"].record(self.stream)
+                with span("orch.front"):
+                    y = (color_ops.rgb_to_y_reference(x) if image.ndim == 3
+                         else x)
+                    levels = transform(y.contiguous(), state, self.int_mode)
+                    dcd = dc_differences(levels[0])
+                rung = cap
+            kcap = kernel_cap(cap)
+            with span("orch.entropy"):
+                if self.color:
+                    words, bits, overflow = mcu_streams(
+                        luma, chroma, dcd, state, nbh, nbw, ss, kcap)
+                else:
+                    words, bits = encode_blocks(levels, dcd, state.huff, kcap)
+                    overflow = bits > kcap * 32
+                stream, head = scan_stream(words, bits, overflow, nbh, nbw,
+                                           cfg.pad_ones, rung,
+                                           self.stuff_on_device)
+                pend = {"stream": stream, "w": w, "h": h, "head": head}
+                if self.cuda:
+                    slot.head.copy_(head, non_blocking=True)
+                    pend["head"] = slot.head
+                    pend["done"] = torch.cuda.Event()
+                    pend["done"].record(self.stream)
         return pend
 
     def close(self) -> None:
@@ -171,19 +189,23 @@ class _Server:
 
     def finish(self, pend: dict, image: np.ndarray) -> bytes:
         """Wait for one submitted encode and return its file."""
-        if self.cuda:
-            pend["done"].synchronize()
-        overflowed, count = pend["head"].tolist()
-        if overflowed:  # past the first rung: the blocking ladder, alone
-            enc = encode_color if self.color else encode_grayscale
-            return enc(image, self.config, device=self.dev)
-        stream = pend["stream"]
-        if self.cuda:
-            self.reader.wait_event(pend["done"])
-            stream.record_stream(self.reader)
-        with self._on(self.reader if self.cuda else None):
-            scan = read_scan(stream, count, self.stuff_on_device)
-        return jfif.assemble(pend["w"], pend["h"], self.config, [scan])
+        with span("serve.finish"):
+            with span("orch.wait"):
+                if self.cuda:
+                    pend["done"].synchronize()
+                overflowed, count = pend["head"].tolist()
+            if overflowed:  # past the first rung: the blocking ladder, alone
+                enc = encode_color if self.color else encode_grayscale
+                return enc(image, self.config, device=self.dev)
+            stream = pend["stream"]
+            if self.cuda:
+                self.reader.wait_event(pend["done"])
+                stream.record_stream(self.reader)
+            with self._on(self.reader if self.cuda else None):
+                scan = read_scan(stream, count, self.stuff_on_device)
+            with span("io.jfif"):
+                return jfif.assemble(pend["w"], pend["h"], self.config,
+                                     [scan])
 
 
 def encode_stream(images: Iterable[np.ndarray],
