@@ -17,12 +17,17 @@ runs once over every block (color: with both tables, then K5 over every
 MCU); K8 at the batch's segment width cuts the block (MCU) rows into
 segments that never cross an image, and K11 lays each image's segments
 back to back in a slab of its own and pads its final byte
-(entropy.concat.concat_segments). The host reads (any overflow, every
-image's total bits) once, then the valid words of all images in one copy,
-and stuffs and assembles each file. An overflow climbs the capacity
-ladder with the same kernels; the transform runs once. jpegtpu pads each
-group with blank images to a power of two to bound its recompiles;
-nothing compiles here, so no image is added.
+(entropy.concat.concat_segments). A share's images reach its device
+through a ring of two host buffers reused for the life of the process
+(pinned for a CUDA device): chunks of whole images are copied into a
+buffer by a few threads, edge-padded in place and copied to the card
+asynchronously, so the host fills one buffer while the other copies.
+The host reads (any overflow, every image's total bits) once, then the
+valid words of all images in one copy, and stuffs and assembles each
+file. An overflow climbs the capacity ladder with the same kernels; the
+transform runs once. jpegtpu pads each group with blank images to a
+power of two to bound its recompiles; nothing compiles here, so no image
+is added.
 
 With optimize_huffman a group shares one set of 2-pass tables: the
 symbols of the whole stack are counted once, and K4 encodes the stack
@@ -42,6 +47,9 @@ the rules read the rung.
 from __future__ import annotations
 
 import itertools
+import math
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -55,8 +63,8 @@ from .entropy.device import dc_differences, symbol_histograms
 from .entropy.pack import encode_blocks
 from .io import jfif
 from .ops import color
-from .ops.blocks import (mcu_dims, pad_edge, padded_dims_color,
-                         sampling_factors, slots_per_mcu)
+from .ops.blocks import (COPY_THREADS, copy_into, pad_in_place,
+                         padded_dims_color, sampling_factors, slots_per_mcu)
 from .ops.transform import transform, transform_rgb_chroma, transform_rgb_y
 from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
                        kernel_cap, optimal_tables, resolve_device,
@@ -66,6 +74,87 @@ from .tracing import count, span
 # jpegtpu's transform tile height in pixels (pallas_transform.TILE_H), which
 # its table-sharing rule counts in.
 _TILE_H = 64
+
+# Bytes of a staging buffer: a chunk is as many whole images as fit, or one
+# image where an image is larger (the buffer then grows to it).
+_CHUNK_BYTES = 64 << 20
+
+
+class _Ring:
+    """Two host buffers that stage batch shares to their devices (pinned
+    for a CUDA device, plain for the CPU), each with the event of its last
+    copy to the card, and the threads that fill them. The lock holds one
+    share's staging at a time."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.buffers = [None, None]
+        self.copied = [None, None]
+        self.turn = 0
+        self.lock = threading.Lock()
+        self.copiers = ThreadPoolExecutor(COPY_THREADS)
+
+    def take(self, n: int) -> tuple:
+        """(index, its first n bytes) of the next buffer, once its last
+        copy to the card has completed."""
+        i, self.turn = self.turn, self.turn ^ 1
+        event = self.copied[i]
+        if event is not None and not event.query():
+            count("io.chunk_waits")
+            with span("io.upload"):
+                event.synchronize()
+        if self.buffers[i] is None or self.buffers[i].numel() < n:
+            self.buffers[i] = torch.empty(max(n, _CHUNK_BYTES),
+                                          dtype=torch.uint8,
+                                          pin_memory=self.pinned)
+        return i, self.buffers[i][:n]
+
+
+_rings: dict = {}  # pinned -> the process's _Ring, made on first use
+_rings_made = threading.Lock()
+
+
+def _ring(pinned: bool) -> _Ring:
+    with _rings_made:
+        if pinned not in _rings:
+            _rings[pinned] = _Ring(pinned)
+        return _rings[pinned]
+
+
+def _stage(images: list, shape: tuple, dev: torch.device) -> torch.Tensor:
+    """The images edge-padded to `shape` ([ph, pw] or [ph, pw, 3]; a 2-D
+    image into 3 channels is repeated to each) and stacked on dev as one
+    [len(images) * ph, pw(, 3)] uint8 tensor, through the ring in chunks
+    of whole images. For each chunk: wait for its buffer's last copy
+    (io.upload), copy the images in by bands of rows on the copying
+    threads (io.stack), replicate the edges in place (io.pad), and copy
+    the buffer to dev (io.upload; from pinned memory without waiting, so
+    the next chunk fills while this one copies, and the kernels queued
+    after it on the stream wait for it)."""
+    cuda = dev.type == "cuda"
+    ring = _ring(cuda)
+    ph, size = shape[0], math.prod(shape)
+    per = max(1, _CHUNK_BYTES // size)
+    out = torch.empty((len(images) * ph, *shape[1:]), dtype=torch.uint8,
+                      device=dev)
+    with ring.lock:
+        for lo in range(0, len(images), per):
+            chunk = images[lo:lo + per]
+            count("io.chunks")
+            i, buf = ring.take(len(chunk) * size)
+            slots = buf.view(len(chunk), *shape).numpy()
+            with span("io.stack"):
+                copy_into(slots, chunk, ring.copiers)
+            with span("io.pad"):
+                for slot, image in zip(slots, chunk):
+                    pad_in_place(slot, *image.shape[:2])
+            with span("io.upload"):
+                out[lo * ph:(lo + len(chunk)) * ph].copy_(
+                    buf.view(-1, *shape[1:]), non_blocking=True)
+                if cuda:
+                    ring.copied[i] = torch.cuda.Event()
+                    ring.copied[i].record(torch.cuda.current_stream(dev))
+    return out
 
 
 def shares_gray_tables(ph: int, pw: int, cap: int) -> bool:
@@ -190,13 +279,7 @@ def _gray_group(images: list, ph: int, pw: int, config: EncodeConfig,
     nbh, nbw = ph // 8, pw // 8
     fronts = []
     for dev, lo, hi in _shares(len(images), devs, nbw):
-        with span("io.pad"):  # lives to the group's end: see _color_group
-            padded = [pad_edge(image) for image in images[lo:hi]]
-        with span("io.stack"):
-            stack = np.stack(padded)
-        with span("io.upload"):
-            plane = torch.from_numpy(stack).to(dev).reshape(
-                (hi - lo) * ph, *stack.shape[2:])
+        plane = _stage(images[lo:hi], (ph, pw, *images[0].shape[2:]), dev)
         with span("orch.tables"):
             state = tables.encoder_state(config, dev)
         with span("orch.front"):
@@ -252,19 +335,8 @@ def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
     int_mode = config.dct_dtype == "int32"
     fronts = []
     for dev, lo, hi in _shares(len(images), devs, nmcw):
-        # `padded` lives to the group's end: freed right after np.stack,
-        # glibc handed the heap back to the OS and the next group's pads
-        # faulted it in again (1.5-2.5x slower pads on an H100's host;
-        # PERF.md)
-        with span("io.pad"):
-            padded = [pad_edge(np.repeat(image[..., None], 3, axis=-1)
-                               if image.ndim == 2 else image, *mcu_dims(ss))
-                      for image in images[lo:hi]]
-        with span("io.stack"):
-            stack = np.stack(padded)
         b = hi - lo
-        with span("io.upload"):
-            rgb = torch.from_numpy(stack).to(dev).reshape(b * ph, pw, 3)
+        rgb = _stage(images[lo:hi], (ph, pw, 3), dev)
         with span("orch.tables"):
             state = tables.encoder_state(config, dev)
         with span("orch.front"):

@@ -48,23 +48,45 @@ def pad_edge(img: np.ndarray, mh: int = 8, mw: int = 8) -> np.ndarray:
     return np.pad(img, pad, mode="edge")
 
 
+COPY_THREADS = 4  # host threads that copy images into staging memory
 _BAND_ROWS = 256  # rows a copying thread takes at a time
+
+
+def copy_into(slots, images, pool=None) -> None:
+    """Copy each image ([H, W] or [H, W, C]; [H, W] into a 3-channel slot
+    is repeated to each channel) into the top left corner of its slot
+    (slots[i], as large or larger). With a thread pool, the bands of rows
+    of all the images copy in parallel, COPY_THREADS lists of bands
+    (numpy lets go of the GIL while it copies)."""
+    bands = [(slot, image[..., None] if slot.ndim > image.ndim else image, lo)
+             for slot, image in zip(slots, images)
+             for lo in range(0, image.shape[0], _BAND_ROWS)]
+
+    def run(part):
+        for slot, src, lo in part:
+            hi = min(lo + _BAND_ROWS, src.shape[0])
+            slot[lo:hi, :src.shape[1]] = src[lo:hi]
+
+    if pool is None:
+        run(bands)
+    else:
+        list(pool.map(run, [bands[k::COPY_THREADS]
+                            for k in range(COPY_THREADS)]))
+
+
+def pad_in_place(dst: np.ndarray, h: int, w: int) -> None:
+    """Edge-replicate dst[:h, :w] over the rest of dst, as np.pad's "edge"
+    mode does: the columns right, then the rows below, corners from the
+    last pixel."""
+    if w < dst.shape[1]:
+        dst[:h, w:] = dst[:h, w - 1:w]
+    if h < dst.shape[0]:
+        dst[h:] = dst[h - 1:h]
 
 
 def pad_into(dst: np.ndarray, image: np.ndarray, pool=None) -> None:
     """Edge-replicate `image` ([H, W] or [H, W, C]; [H, W] into a 3-channel
-    dst is repeated to each channel) into the larger `dst`, as np.pad's
-    "edge" mode does: the columns right, then the rows below, corners
-    from the last pixel. With a thread pool, bands of rows copy in
-    parallel (numpy lets go of the GIL while it copies)."""
-    h, w = image.shape[:2]
-    src = image[..., None] if dst.ndim > image.ndim else image
-
-    def band(lo):
-        hi = min(lo + _BAND_ROWS, h)
-        dst[lo:hi, :w] = src[lo:hi]
-        dst[lo:hi, w:] = dst[lo:hi, w - 1:w]
-
-    list((pool.map if pool is not None else map)(band,
-                                                 range(0, h, _BAND_ROWS)))
-    dst[h:] = dst[h - 1:h]
+    dst is repeated to each channel) into the larger `dst` (copy_into,
+    then pad_in_place)."""
+    copy_into(dst[None], [image], pool)
+    pad_in_place(dst, *image.shape[:2])

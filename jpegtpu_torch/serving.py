@@ -50,14 +50,12 @@ from .entropy.device import dc_differences
 from .entropy.pack import encode_blocks
 from .io import jfif
 from .ops import color as color_ops
-from .ops.blocks import (pad_into, padded_dims_color, sampling_factors,
-                         slots_per_mcu)
+from .ops.blocks import (COPY_THREADS, pad_into, padded_dims_color,
+                         sampling_factors, slots_per_mcu)
 from .ops.transform import transform, transform_rgb_chroma, transform_rgb_y
 from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
                        kernel_cap, read_scan, resolve_device, scan_stream)
 from .tracing import span
-
-_COPY_THREADS = 4  # host threads that edge-pad an image into pinned memory
 
 
 class _Slot:
@@ -93,7 +91,7 @@ class _Server:
         self.int_mode = config.dct_dtype == "int32"
         self.slots = [_Slot() for _ in range(depth)] if self.cuda else []
         self.n = 0
-        self.copiers = ThreadPoolExecutor(_COPY_THREADS) if self.cuda \
+        self.copiers = ThreadPoolExecutor(COPY_THREADS) if self.cuda \
             else None
         if self.cuda:
             self.stream = torch.cuda.Stream(dev)

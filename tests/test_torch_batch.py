@@ -16,7 +16,7 @@ from jpegtpu.entropy import host as jhost
 from jpegtpu.io import jfif as jjfif
 
 import jpegtpu_torch
-from jpegtpu_torch import EncodeConfig, batch
+from jpegtpu_torch import EncodeConfig, batch, tracing
 
 from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
 
@@ -207,6 +207,42 @@ def test_restart_and_host_entropy_route_per_image(monkeypatch, kw, ss):
         got = batch.encode_color_batch(images, cfg, **CPU)
         want = [jpegtpu_torch.encode_color(im, cfg, **CPU) for im in images]
     assert got == want and rungs.caps == []
+
+
+@pytest.mark.parametrize("color", [True, False], ids=["420", "gray"])
+def test_a_batch_stages_through_the_ring_in_chunks(monkeypatch, color):
+    """With buffers of two small images, a group of five spans three
+    chunks and wraps the ring; an image larger than a buffer is a chunk of
+    its own and grows it. The groups hold a 2-D image (into three channels
+    for color), sizes that are not whole MCUs, and RGB images. Every file
+    equals its single-image encode."""
+    if color:  # 20 x 30 pads to 32 x 32 x 3 = 3,072 bytes
+        cfg, chunk = EncodeConfig(subsampling="420", dct_dtype="int32"), 6144
+        shapes = [(20, 30, 3), (20, 30), (17, 32, 3), (32, 20, 3),
+                  (20, 30, 3), (40, 60, 3), (33, 64, 3)]
+        encode, single = batch.encode_color_batch, jpegtpu_torch.encode_color
+    else:  # 2-D 20 x 30 pads to 24 x 32 = 768 bytes
+        cfg, chunk = EncodeConfig(dct_dtype="int32"), 1536
+        shapes = [(20, 30), (17, 32), (24, 25), (20, 30), (23, 31),
+                  (20, 30, 3), (40, 60), (33, 64)]
+        encode = batch.encode_grayscale_batch
+        single = jpegtpu_torch.encode_grayscale
+    images = [_photo(*s[:2], 90 + i, rgb=len(s) == 3)
+              for i, s in enumerate(shapes)]
+    monkeypatch.setattr(batch, "_CHUNK_BYTES", chunk)
+    monkeypatch.setattr(batch, "_rings", {})
+    with tracing.recording():
+        got = encode(images, cfg, **CPU)
+    ring = batch._rings[False]
+    ring.copiers.shutdown()
+    # five small images two a chunk, then one a chunk for each larger
+    # one (color: two of 48 x 64 x 3; gray: one RGB 24 x 32 x 3 and two
+    # 40 x 64)
+    assert tracing.totals()["counts"]["io.chunks"] == (5 if color else 6)
+    assert max(b.numel() for b in ring.buffers) == (
+        48 * 64 * 3 if color else 40 * 64)
+    for image, data in zip(images, got):
+        assert data == single(image, cfg, **CPU)
 
 
 def test_input_order_empty_batch_and_refusals():

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import jpegtpu_torch
-from jpegtpu_torch import pipeline, tables
+from jpegtpu_torch import batch, pipeline, tables, tracing
 from jpegtpu_torch import _build
 from jpegtpu_torch.entropy import concat, device, merge, pack, stitch
 from jpegtpu_torch.entropy import treepack
@@ -439,6 +439,47 @@ def test_batch_encode_matches_cpu_in_int32_mode(cuda, kw):
     encode = (jpegtpu_torch.encode_grayscale_batch if cfg.n_components == 1
               else jpegtpu_torch.encode_color_batch)
     assert encode(images, cfg) == encode(images, cfg, device="cpu")
+
+
+def test_batch_stages_through_a_pinned_ring(cuda, monkeypatch):
+    """A 4:2:0 batch over several chunks of the ring (a 2-D image, sizes
+    that are not whole MCUs, an image larger than a buffer) gives the CPU
+    path's bytes, also on a mesh; the ring's buffers are pinned, and a
+    second call pins no new one."""
+    rng = np.random.default_rng(9)
+    shapes = [(61, 93, 3), (61, 93), (64, 96, 3), (50, 90, 3), (61, 93, 3),
+              (200, 330, 3)]
+    images = [rng.integers(0, 256, s, np.uint8) for s in shapes]
+    cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32", subsampling="420")
+    monkeypatch.setattr(batch, "_CHUNK_BYTES", 2 * 64 * 96 * 3)
+    monkeypatch.setattr(batch, "_rings", {})
+    with tracing.recording():
+        got = jpegtpu_torch.encode_color_batch(images, cfg)
+    assert tracing.totals()["counts"]["io.chunks"] == 3 + 1
+    ring = batch._rings[True]
+    assert all(b.is_pinned() for b in ring.buffers)
+    pinned = [b.data_ptr() for b in ring.buffers]
+    assert jpegtpu_torch.encode_color_batch(images, cfg) == got
+    assert jpegtpu_torch.encode_color_batch(
+        images, cfg, mesh=["cuda:0"] * 2) == got
+    assert [b.data_ptr() for b in ring.buffers] == pinned
+    ring.copiers.shutdown()
+    assert got == jpegtpu_torch.encode_color_batch(images, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("color", [True, False], ids=["420", "gray"])
+def test_stream_matches_cpu_in_int32_mode(cuda, color):
+    """encode_stream's edge pad into pinned slots over its copying threads
+    (a 2-D image, sizes that are not whole blocks or MCUs, one of more
+    than a band of rows) gives the CPU path's bytes."""
+    rng = np.random.default_rng(10)
+    images = [rng.integers(0, 256, s, np.uint8) for s in [
+        (61, 93, 3), (61, 93), (300, 130, 3), (16, 1030), (64, 64, 3)]]
+    cfg = jpegtpu_torch.EncodeConfig(
+        dct_dtype="int32", subsampling="420" if color else "gray")
+    assert jpegtpu_torch.encode_stream_list(images, cfg, color=color) == \
+        jpegtpu_torch.encode_stream_list(images, cfg, color=color,
+                                         device="cpu")
 
 
 @pytest.mark.parametrize("cap,nbw,tiles", [

@@ -218,7 +218,8 @@ def test_a_two_group_color_batch_records_its_spans_and_counters():
     with tracing.recording():
         jpegtpu_torch.encode_color_batch(images, COLOR, **CPU)
     t = tracing.totals()
-    assert t["counts"] == {"batch.groups": 2, "orch.rungs": 2}
+    assert t["counts"] == {"batch.groups": 2, "orch.rungs": 2,
+                           "io.chunks": 2}
     # kernel.launch is the card's: the plain versions launch nothing
     assert set(t["spans"]) == BATCH_SPANS
     assert t["spans"]["entry.batch"]["calls"] == 1
