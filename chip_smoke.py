@@ -32,8 +32,13 @@ program's spans at depths 1 and 2, an overflowing image's fallback); sharded
 per shard, int32 files equal to the CPU path); multiprocess (two
 processes on the card over gloo, one shard each, started as
 `chip_smoke.py --worker PORT RANK DIR`: K8 + K11, K6 for 4:2:0, files
-equal to one process); and batch_mesh (1024 x 512 x 512 gray on a mesh
-of the card twice, files equal to no mesh). Last, tooling: the command
+equal to one process); batch_mesh (1024 x 512 x 512 gray on a mesh
+of the card twice, files equal to no mesh); and on_card (64 planar
+1080 x 1920 frames already on the card, read through .permute(1, 2, 0):
+K13 against its plain version, RGB, gray and 70 mixed images, one launch
+a 64, timed beside its bound and its twin; encode_color_batch at Q75
+4:2:0 on the frames equal to the numpy input's files, with K13 and with
+its twin). Last, tooling: the command
 line (jpegtpu_torch.cli encode with and without --sharded and
 --entropy host, encode-dir batched and --pipeline 2, profile) at 3024 x
 4032 gray and 4:2:0, every file equal to the port's CPU path; the stage
@@ -44,8 +49,8 @@ of each luma against its reconstruction from K1's levels.
 Every source is built anew; the build line lists each kernel's registers,
 spills and shared memory, and the run fails if a kernel of transform.cu,
 pack.cu, merge.cu or concat.cu (K1-K11) spills. Right after the build,
-one torch.profiler session counts the device kernels of one K12, K11,
-K10, K9, K8, K7 and K5 wrapper call (two, then one each), and the
+one torch.profiler session counts the device kernels of one K13, K12,
+K11, K10, K9, K8, K7 and K5 wrapper call (two for K12, one each), and the
 kernel_edges phase holds K1-K5 and K7-K10 against their plain
 versions, equal to the last level and word, on
 tests/kernel_edge_cases.py's adversarial blocks, ragged grids, fused
@@ -92,7 +97,7 @@ from jpegtpu_torch.entropy import treepack
 from jpegtpu_torch.entropy.device import (MAX_WORDS_PER_BLOCK,
                                           assemble_histograms, dc_differences,
                                           symbol_histograms, y_dc_differences)
-from jpegtpu_torch.ops import transform
+from jpegtpu_torch.ops import stage, transform
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
@@ -109,6 +114,10 @@ TOP_N = 128  # images of the top-rung K8 / K11 checks
 BIG_H, BIG_W = 4320, 7680  # the 8K frame, 33.2 MPix (bench.py:521-575)
 K6_N = 16  # 3024 x 4032 images of the batch K6 phase
 K6_RUNG16_N = 64  # 512 x 512 images of its rung-16 check
+# the video frames of on_card_phases: 64 planar 1080 x 1920 frames a call,
+# stacked at 1088 rows (whole 4:2:0 MCUs), and the mixed K13 case's count
+VIDEO_N, VIDEO_H, VIDEO_W, VIDEO_PH = 64, 1080, 1920, 1088
+STAGE_MIXED_N = 70  # two K13 launches: 64 + 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 REPS = 10
@@ -325,8 +334,8 @@ def k5_check_and_spec(name: str, wy, by, wc, bc, nmch: int, nmcw: int):
 
 
 def wrapper_launches(say) -> None:
-    """One call each of K12's, K11's, K10's, K9's, K8's, K7's and K5's
-    wrappers in one torch.profiler session: the device kernels
+    """One call each of K13's, K12's, K11's, K10's, K9's, K8's, K7's and
+    K5's wrappers in one torch.profiler session: the device kernels
     each launched, and their device microseconds, from key_averages().
     K12 runs on 190,512 seeded streams of 8 words at interval 504 (the
     3024 x 4032 gray restart grid), K11 on 64 images of the gray batch's
@@ -336,9 +345,10 @@ def wrapper_launches(say) -> None:
     gray stream's 1,525,632 words, K8 on the K12 streams as the 3024 x
     4032 gray grid's row segments, K7 on 4,096 blocks of
     tests/kernel_edge_cases.py's fused elements, K5 on seeded block
-    streams of the 3024 x 4032 4:2:0 grid. Fails if the profiler sees
-    device events and they are not two K12 launches and one each of the
-    others; says so if it sees none."""
+    streams of the 3024 x 4032 4:2:0 grid, K13 on 64 planar 61 x 93
+    RGB images read through .permute(1, 2, 0) into a 64 x 96 stack. Fails
+    if the profiler sees device events and they are not two K12 launches
+    and one each of the others; says so if it sees none."""
     from torch.profiler import ProfilerActivity, profile
     words, bits = seeded_streams(8, (H // 8) * (W // 8), 5)
     sw, sb = seeded_streams(576, 64 * 64, 6, np.arange(0, 4000))
@@ -355,7 +365,11 @@ def wrapper_launches(say) -> None:
     nmch, nmcw = H // 16, W // 16
     wy, by = seeded_streams(8, 4 * nmch * nmcw, 10)
     wc, bc = seeded_streams(8, 2 * nmch * nmcw, 11)
-    calls = {"stitch_segments": lambda: stitch.stitch_segments(words, bits,
+    planar = torch.randint(0, 256, (64, 3, 61, 93), dtype=torch.uint8,
+                           device="cuda")
+    frames = [f.permute(1, 2, 0) for f in planar]
+    calls = {"stage_images": lambda: stage.stage_images(frames, (64, 96, 3)),
+             "stitch_segments": lambda: stitch.stitch_segments(words, bits,
                                                                W // 8),
              "stream_concat_rows": lambda: concat.stream_concat_rows(
                  segs, sb, 64, 64 * 64 * 8),
@@ -385,7 +399,8 @@ def wrapper_launches(say) -> None:
     if not seen:
         say("device_launches", note="the profiler shows no device events")
         return
-    owner = {"stitch_segments": ("stitch_scan_kernel",
+    owner = {"stage_images": ("stage_images_kernel",),
+             "stitch_segments": ("stitch_scan_kernel",
                                  "stitch_segments_kernel"),
              "stream_concat_rows": ("stream_concat_rows_kernel",
                                     "rows_scan_kernel"),
@@ -402,7 +417,8 @@ def wrapper_launches(say) -> None:
     say("device_launches", launches=counts, other_device_events=other,
         kernels={k: {"count": c, "device_us": us}
                  for k, (c, us) in seen.items()})
-    check(counts == {"stitch_segments": 2, "stream_concat_rows": 1,
+    check(counts == {"stage_images": 1, "stitch_segments": 2,
+                     "stream_concat_rows": 1,
                      "stream_concat_chunked": 1, "stream_concat": 1,
                      "merge_rows": 1, "pack_blocks": 1, "merge_mcu": 1}
           and other == 0,
@@ -2447,6 +2463,133 @@ def batch_mesh_phases(dev, say) -> list:
     return entries
 
 
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host-clock milliseconds of fn() from an idle card to its
+    last device work done: launch overhead included, which is what a
+    host-bound caller pays."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def on_card_phases(dev, say) -> list:
+    """Frames that are already on the card, as a video decoder hands them
+    out: VIDEO_N planar [3, 1080, 1920] frames passed as .permute(1, 2, 0)
+    views. K13 (ops.stage.stage_images) stacks them at 1088 rows, stacks
+    the frames' green planes (gray), and stacks STAGE_MIXED_N cropped RGB
+    views and gray planes into three channels (two launches); each stack
+    equals stage_images_plain's byte for byte, with one launch a 64
+    images (launch counts reset just before). K13 and its twin are timed
+    on the frames beside K13's bound (3 bytes a pixel read, 3 written),
+    by CUDA events and by the host clock. Then encode_color_batch at the
+    video configuration (Q75, 4:2:0) on the views: one K13 launch, its
+    span and counter and none of the ring's, no host sync in _stage, the
+    files of the numpy route, and both routes' wall time; with K13's twin
+    in its place, the same files and the time that costs; an int32
+    batch and encode_color on the views equal to the CPU path and the
+    numpy input. Returns K13's kernel entry."""
+    frames = batch_images_on_card(VIDEO_N, VIDEO_H, VIDEO_W, True, seed=18)
+    planar = frames.permute(0, 3, 1, 2).contiguous()
+    del frames
+    views = [f.permute(1, 2, 0) for f in planar]
+    rgb = (VIDEO_PH, VIDEO_W, 3)
+    cases = {
+        "rgb_planar": (views, rgb),
+        "gray": ([f[1] for f in planar], rgb[:2]),
+        "mixed": ([views[i % VIDEO_N][:VIDEO_H - i, :VIDEO_W - 8 * (i % 5)]
+                   if i % 2 else planar[i % VIDEO_N, i % 3]
+                   for i in range(STAGE_MIXED_N)], rgb),
+    }
+    results, launches = {}, {}
+    for name, (images, shape) in cases.items():
+        reset_launches()
+        got = stage.stage_images(images, shape)
+        launches[name] = _build.LAUNCHES["stage_images"]
+        want = stage.stage_images_plain(images, shape)
+        err = int((got.int() - want.int()).abs().max())
+        check(err == 0 and torch.equal(got, want),
+              f"K13 {name}: kernel != plain, max_abs_err {err}")
+        check(launches[name] == -(-len(images) // stage.MAX_IMAGES),
+              f"K13 {name}: {launches[name]} launches for {len(images)} "
+              "images")
+        results[name] = {"images": len(images), "stack": list(got.shape),
+                         "launches": launches[name], "max_abs_err": err}
+        del got, want
+    say("on_card_k13_vs_plain", **results)
+    pixels = VIDEO_N * VIDEO_H * VIDEO_W
+    k13 = lambda: stage.stage_images(views, rgb)  # noqa: E731
+    twin = lambda: stage.stage_images_plain(views, rgb)  # noqa: E731
+    entries = time_kernels(
+        [("stage_images", "jpegtpu_torch/csrc/stage.cu",
+          "none: jpegtpu edge-pads on the host (np.pad) before its upload",
+          k13, twin, 6 * pixels, 0,
+          {"wall_ms": wall_ms(k13), "plain_wall_ms": wall_ms(twin)})],
+        {"stage_images": launches["rgb_planar"]},
+        {"stage_images": results["rgb_planar"]}, "on_card_video",
+        [VIDEO_N, VIDEO_H, VIDEO_W, 3], say)
+
+    cfg = EncodeConfig(quality=75, subsampling="420")
+    arrays = [f.cpu().numpy() for f in views]
+    want = batch.encode_color_batch(arrays, cfg)
+    reset_launches()
+    got = batch.encode_color_batch(views, cfg)
+    card_launches = dict(_build.LAUNCHES)
+    check(got == want, "on-card batch: files != the numpy route's")
+    check(card_launches["stage_images"] == 1,
+          f"on-card batch: launches {card_launches}")
+    traced = traced_call(lambda: batch.encode_color_batch(views, cfg))
+    check("io.on_card" in traced["calls"]
+          and traced["counts"].get("io.on_card_images") == VIDEO_N
+          and not {"io.stack", "io.pad", "io.upload"} & set(traced["calls"]),
+          f"on-card batch: spans {traced['calls']}, counts "
+          f"{traced['counts']}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch._stage(views, rgb, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    secs = {}
+    for route, images in (("numpy", arrays), ("card", views)):
+        secs[route] = wall_ms(lambda: batch.encode_color_batch(images, cfg),
+                              reps=3) / 1e3
+    try:  # the card route with K13's twin in its place
+        pipeline.stage_images = stage.stage_images_plain
+        check(batch.encode_color_batch(views, cfg) == want,
+              "on-card batch with K13's twin: files != the numpy route's")
+        secs["card_twin"] = wall_ms(
+            lambda: batch.encode_color_batch(views, cfg), reps=3) / 1e3
+    finally:
+        pipeline.stage_images = stage.stage_images
+    say("on_card_batch", shape=[VIDEO_N, VIDEO_H, VIDEO_W, 3],
+        quality=cfg.quality, files_equal_numpy_route=VIDEO_N,
+        bytes=sum(map(len, got)), launches={
+            k: v for k, v in card_launches.items() if v},
+        spans=traced["calls"], counts=traced["counts"],
+        self_ms=traced["self_ms"], median_s=secs,
+        mpix_per_s={k: pixels / 1e6 / v for k, v in secs.items()})
+
+    cfg_int = EncodeConfig(quality=75, subsampling="420", dct_dtype="int32")
+    few = views[:4]
+    check(batch.encode_color_batch(few, cfg_int)
+          == batch.encode_color_batch(arrays[:4], cfg_int, device="cpu"),
+          "on-card int32 batch: files != the CPU path")
+    check(color_pipeline.encode_color(views[1], cfg)
+          == color_pipeline.encode_color(arrays[1], cfg),
+          "on-card encode_color: file != the numpy input's")
+    say("on_card_single_and_int32", int32_batch_equal_cpu=len(few),
+        encode_color_equal_numpy=1)
+    del views, planar, arrays
+    torch.cuda.empty_cache()
+    return entries
+
+
 TOOL_DIR_N = 8  # 512 x 512 BMPs of the encode-dir checks
 
 
@@ -2714,7 +2857,7 @@ def main() -> int:
           and occupancy["stream_concat_kernel"] > 0,
           f"occupancy query failed: {occupancy}")
 
-    # --- 1b. device launches of one K12, K11, K10, K9, K8, K7, K5 call ---
+    # --- 1b. device launches of one K13, K12, K11, K10, K9, K8, K7, K5 call
     wrapper_launches(say)
 
     # --- 1c. K1-K5, K7-K10 against their plain versions, edges ---------
@@ -2857,6 +3000,7 @@ def main() -> int:
     kernels += sharded_phases(dev, say)
     kernels += multiprocess_phases(dev, say)
     kernels += batch_mesh_phases(dev, say)
+    kernels += on_card_phases(dev, say)
     kernels += tooling_phases(dev, say)
 
     print(json.dumps({"kernels": kernels}))

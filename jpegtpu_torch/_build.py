@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "jpegtpu_torch")
 
-KERNEL_SOURCES = ("transform", "pack", "merge", "concat", "stitch")
+KERNEL_SOURCES = ("transform", "pack", "merge", "concat", "stitch", "stage")
 
 _lock = threading.Lock()
 _libs: dict = {}

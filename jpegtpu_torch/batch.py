@@ -22,12 +22,14 @@ through a ring of two host buffers reused for the life of the process
 (pinned for a CUDA device): chunks of whole images are copied into a
 buffer by a few threads, edge-padded in place and copied to the card
 asynchronously, so the host fills one buffer while the other copies.
-The host reads (any overflow, every image's total bits) once, then the
-valid words of all images in one copy, and stuffs and assembles each
-file. An overflow climbs the capacity ladder with the same kernels; the
-transform runs once. jpegtpu pads each group with blank images to a
-power of two to bound its recompiles; nothing compiles here, so no image
-is added.
+Images that are already on the share's device (torch tensors) are
+edge-padded and stacked there by one K13 launch (ops.stage), with no
+copy across the bus and no host wait. The host reads (any overflow,
+every image's total bits) once, then the valid words of all images in
+one copy, and stuffs and assembles each file. An overflow climbs the
+capacity ladder with the same kernels; the transform runs once. jpegtpu
+pads each group with blank images to a power of two to bound its
+recompiles; nothing compiles here, so no image is added.
 
 With optimize_huffman a group shares one set of 2-pass tables: the
 symbols of the whole stack are counted once, and K4 encodes the stack
@@ -68,7 +70,7 @@ from .ops.blocks import (COPY_THREADS, copy_into, pad_in_place,
 from .ops.transform import transform, transform_rgb_chroma, transform_rgb_y
 from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
                        kernel_cap, optimal_tables, resolve_device,
-                       segments_from_streams)
+                       segments_from_streams, source_image, stage_on_card)
 from .tracing import count, span
 
 # jpegtpu's transform tile height in pixels (pallas_transform.TILE_H), which
@@ -124,13 +126,31 @@ def _ring(pinned: bool) -> _Ring:
 def _stage(images: list, shape: tuple, dev: torch.device) -> torch.Tensor:
     """The images edge-padded to `shape` ([ph, pw] or [ph, pw, 3]; a 2-D
     image into 3 channels is repeated to each) and stacked on dev as one
-    [len(images) * ph, pw(, 3)] uint8 tensor, through the ring in chunks
-    of whole images. For each chunk: wait for its buffer's last copy
-    (io.upload), copy the images in by bands of rows on the copying
-    threads (io.stack), replicate the edges in place (io.pad), and copy
-    the buffer to dev (io.upload; from pinned memory without waiting, so
-    the next chunk fills while this one copies, and the kernels queued
-    after it on the stream wait for it)."""
+    [len(images) * ph, pw(, 3)] uint8 tensor. Host images go through the
+    ring (_stage_ring); images already on dev (pipeline.source_image) are
+    staged there by K13 (pipeline.stage_on_card). A share that holds both
+    stages its host images through the ring first and hands their padded
+    rows to K13 with the others."""
+    images = [source_image(image, dev) for image in images]
+    on_card = [isinstance(image, torch.Tensor) for image in images]
+    if not any(on_card):
+        return _stage_ring(images, shape, dev)
+    if not all(on_card):
+        rows = iter(_stage_ring([im for im, o in zip(images, on_card)
+                                 if not o], shape, dev).split(shape[0]))
+        images = [im if o else next(rows) for im, o in zip(images, on_card)]
+    return stage_on_card(images, shape)
+
+
+def _stage_ring(images: list, shape: tuple, dev: torch.device
+                ) -> torch.Tensor:
+    """_stage of host images: through the ring in chunks of whole images.
+    For each chunk: wait for its buffer's last copy (io.upload), copy the
+    images in by bands of rows on the copying threads (io.stack),
+    replicate the edges in place (io.pad), and copy the buffer to dev
+    (io.upload; from pinned memory without waiting, so the next chunk
+    fills while this one copies, and the kernels queued after it on the
+    stream wait for it)."""
     cuda = dev.type == "cuda"
     ring = _ring(cuda)
     ph, size = shape[0], math.prod(shape)
@@ -383,8 +403,9 @@ def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
 
 def encode_grayscale_batch(images: list, config: EncodeConfig | None = None,
                            mesh=None, *, device=None) -> list:
-    """Encode uint8 images ([H, W] luma or [H, W, 3] RGB) as baseline
-    grayscale JFIF byte strings, in input order, byte-identical to
+    """Encode uint8 images ([H, W] luma or [H, W, 3] RGB; numpy arrays or
+    torch tensors, which may be mixed: see pipeline.source_image) as
+    baseline grayscale JFIF byte strings, in input order, byte-identical to
     jpegtpu's batch.encode_grayscale_batch (and so to its single-image
     encodes, apart from the tables that optimize_huffman shares). mesh:
     a list of devices (parallel.sharding.make_mesh) that each shape
@@ -412,8 +433,9 @@ def encode_grayscale_batch(images: list, config: EncodeConfig | None = None,
 
 def encode_color_batch(images: list, config: EncodeConfig | None = None,
                        mesh=None, *, device=None) -> list:
-    """Encode uint8 images ([H, W, 3] RGB, or [H, W] gray promoted to RGB)
-    as baseline YCbCr JFIF byte strings, in input order, byte-identical to
+    """Encode uint8 images ([H, W, 3] RGB, or [H, W] gray promoted to RGB;
+    numpy arrays or torch tensors, as in encode_grayscale_batch) as
+    baseline YCbCr JFIF byte strings, in input order, byte-identical to
     jpegtpu's batch.encode_color_batch. The default config is 4:2:0 at
     Q50. mesh as in encode_grayscale_batch."""
     with span("entry.batch"):

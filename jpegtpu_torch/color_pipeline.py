@@ -44,12 +44,13 @@ from .entropy.merge import (mcu_luma_blocks, merge_mcu, merge_streams,
                             slot_major_streams)
 from .entropy.pack import encode_blocks
 from .io import jfif
-from .ops.blocks import mcu_dims, pad_edge, sampling_factors, slots_per_mcu
+from .ops.blocks import (mcu_dims, pad_edge, padded_dims_color,
+                         sampling_factors, slots_per_mcu)
 from .ops.transform import transform_rgb_chroma, transform_rgb_y
 from .parallel import multihost, sharding
 from .pipeline import (_check_image, capacity_ladder, finish_streams,
                        host_scan, kernel_cap, optimal_tables, record_cap,
-                       resolve_device)
+                       resolve_device, source_image, stage_on_card)
 from .tracing import span
 
 
@@ -86,37 +87,42 @@ def color_concat_mode(ph: int, pw: int, subsampling: str, cap: int) -> str:
                        column_groups(nmcw))
 
 
-def component_levels(image: np.ndarray, config: EncodeConfig,
-                     dev: torch.device):
-    """Host edge-pad to the MCU -> device -> K2 and K3. Returns (luma
-    levels [64, ny], chroma levels [64, 2 * nmcu] (Cb then Cr), encoder
-    state, padded (ph, pw))."""
+def component_levels(image, config: EncodeConfig, dev: torch.device):
+    """Host edge-pad to the MCU -> device (or K13 for an image on the
+    device) -> K2 and K3. Returns (luma levels [64, ny], chroma levels
+    [64, 2 * nmcu] (Cb then Cr), encoder state, padded (ph, pw))."""
     if config.n_components != 3:
         raise ValueError("encode_color needs a color subsampling "
                          "(420, 422 or 444); use encode_grayscale for gray")
     _check_image(image)
-    with span("io.pad"):
-        if image.ndim == 2:
-            image = np.repeat(image[..., None], 3, axis=-1)
-        padded = np.ascontiguousarray(
-            pad_edge(image, *mcu_dims(config.subsampling)))
-    with span("io.upload"):
-        rgb = torch.from_numpy(padded).to(dev)
+    image = source_image(image, dev)
+    if isinstance(image, torch.Tensor):
+        rgb = stage_on_card([image], (*padded_dims_color(
+            *image.shape[:2], config.subsampling), 3))
+    else:
+        with span("io.pad"):
+            if image.ndim == 2:
+                image = np.repeat(image[..., None], 3, axis=-1)
+            padded = np.ascontiguousarray(
+                pad_edge(image, *mcu_dims(config.subsampling)))
+        with span("io.upload"):
+            rgb = torch.from_numpy(padded).to(dev)
     with span("orch.tables"):
         state = tables.encoder_state(config, dev)
     int_mode = config.dct_dtype == "int32"
     with span("orch.front"):
         return (transform_rgb_y(rgb, state, int_mode),
                 transform_rgb_chroma(rgb, state, int_mode, config.subsampling),
-                state, padded.shape[:2])
+                state, tuple(rgb.shape[:2]))
 
 
-def color_coefficients(image: np.ndarray, config: EncodeConfig | None = None,
+def color_coefficients(image, config: EncodeConfig | None = None,
                        *, device=None):
     """Interleaved levels of a color encode, in scan order, with their
     layout (the host coder's input and the tests' oracle).
 
-    image: uint8 [H, W, 3] RGB, or [H, W] gray (promoted to 3 channels).
+    image: uint8 [H, W, 3] RGB, or [H, W] gray (promoted to 3 channels),
+    a numpy array or a tensor.
     Returns (zz [nslots, 64] int32, table_sel [nslots], comp_id [nslots])."""
     config = config or EncodeConfig(subsampling="420")
     ly, lc, _, (ph, pw) = component_levels(image, config,
@@ -127,11 +133,13 @@ def color_coefficients(image: np.ndarray, config: EncodeConfig | None = None,
     return zz.cpu().numpy(), table_sel, comp_id
 
 
-def encode_color(image: np.ndarray, config: EncodeConfig | None = None,
+def encode_color(image, config: EncodeConfig | None = None,
                  *, device=None) -> bytes:
     """Encode an image (uint8 [H, W, 3] RGB, or [H, W] gray promoted to
     RGB) as a baseline YCbCr JFIF byte string, byte-identical to
-    jpegtpu's. The default config is 4:2:0 at Q50."""
+    jpegtpu's. The default config is 4:2:0 at Q50. The image is a numpy
+    array or a torch tensor; one on the encode's device is staged there
+    (pipeline.stage_on_card), with the same bytes."""
     with span("entry.single"):
         config = config or EncodeConfig(subsampling="420")
         dev = resolve_device(device)
@@ -286,9 +294,9 @@ def encode_color_sharded(image: np.ndarray, config: EncodeConfig | None = None,
         raise ValueError("encode_color_sharded needs a color subsampling")
     mesh = sharding.resolve_mesh(mesh, device)
     n = len(mesh)
+    _check_image(image, tensors=False)
     if image.ndim == 2:
         image = np.repeat(image[..., None], 3, axis=-1)
-    _check_image(image)
     ss = config.subsampling
     h, w = orig_shape if orig_shape is not None else image.shape[:2]
     mh, mw = mcu_dims(ss)

@@ -36,7 +36,7 @@ def first_block_report(image: np.ndarray, config: EncodeConfig | None = None,
     of the integer DCT that the encoder runs. The stages run on
     resolve_device(device)."""
     config = config or EncodeConfig()
-    _check_image(image)
+    _check_image(image, tensors=False)
     dev = resolve_device(device)
     x = torch.from_numpy(np.ascontiguousarray(pad_edge(image))).to(dev)
     y = color.rgb_to_y_reference(x) if image.ndim == 3 else x

@@ -244,7 +244,7 @@ def encode_grayscale_sharded(image: np.ndarray,
     config = config or EncodeConfig()
     mesh = resolve_mesh(mesh, device)
     n = len(mesh)
-    _check_image(image)
+    _check_image(image, tensors=False)
     h, w = orig_shape if orig_shape is not None else image.shape[:2]
     ph, pw = shard_padded_dims(h, w, n)
     rows, nbw = ph // n // 8, pw // 8

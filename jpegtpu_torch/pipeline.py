@@ -48,8 +48,9 @@ from .entropy.stitch import stitch_segments
 from .io import bmp, jfif
 from .ops import color
 from .ops.blocks import pad_edge
+from .ops.stage import stage_images
 from .ops.transform import transform
-from .tracing import span
+from .tracing import count, span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,50 +65,93 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _check_image(image: np.ndarray) -> None:
-    if image.dtype != np.uint8 or not (
+def _check_image(image, tensors: bool = True) -> None:
+    """A uint8 [H, W] or [H, W, 3] image: a numpy array or, where
+    `tensors`, a torch tensor on any device with any strides."""
+    if isinstance(image, torch.Tensor):
+        if not tensors:
+            raise ValueError("this entry takes numpy arrays, not tensors")
+        ok = image.dtype == torch.uint8
+    else:
+        ok = image.dtype == np.uint8
+    if not ok or not (
         image.ndim == 2 or (image.ndim == 3 and image.shape[2] == 3)
     ):
         raise ValueError(
             f"expected uint8 [H, W] or [H, W, 3], got {image.dtype} "
-            f"{image.shape}"
+            f"{tuple(image.shape)}"
         )
 
 
-def _levels(image: np.ndarray, config: EncodeConfig, dev: torch.device):
-    """Host edge-pad -> device -> luma -> K1. Returns (levels [64, nb]
-    int32, encoder state, nbh, nbw)."""
+def source_image(image, dev: torch.device):
+    """Where an encode on `dev` reads an image from: a tensor on dev as it
+    is (the on-card route, stage_on_card); a tensor on another device
+    copied to dev first (without a host wait where dev is a card); a CPU
+    tensor for a card, and a numpy array, as a numpy array (the host
+    route: edge pad, copy up)."""
+    if not isinstance(image, torch.Tensor):
+        return image
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if image.device == dev:
+        return image
+    if image.device.type == "cpu":
+        return image.numpy()
+    return image.to(dev, non_blocking=dev.type == "cuda")
+
+
+def stage_on_card(images: list, shape: tuple) -> torch.Tensor:
+    """The on-card route: images already on the encode's device,
+    edge-padded and stacked there by K13 (ops.stage) into one [len(images)
+    * ph, pw(, 3)] tensor, with no copy across the bus and no host wait."""
+    with span("io.on_card"):
+        count("io.on_card_images", len(images))
+        return stage_images(images, shape)
+
+
+def _levels(image, config: EncodeConfig, dev: torch.device):
+    """Host edge-pad -> device (or K13 for an image on the device) ->
+    luma -> K1. Returns (levels [64, nb] int32, encoder state, nbh,
+    nbw)."""
     if config.n_components != 1:
         raise ValueError(f"subsampling={config.subsampling!r} is a color "
                          "config: use encode_color")
     _check_image(image)
-    with span("io.pad"):
-        padded = np.ascontiguousarray(pad_edge(image))
-    with span("io.upload"):
-        x = torch.from_numpy(padded).to(dev)
+    image = source_image(image, dev)
+    if isinstance(image, torch.Tensor):
+        h, w = image.shape[:2]
+        x = stage_on_card([image], (-(-h // 8) * 8, -(-w // 8) * 8,
+                                    *image.shape[2:]))
+    else:
+        with span("io.pad"):
+            padded = np.ascontiguousarray(pad_edge(image))
+        with span("io.upload"):
+            x = torch.from_numpy(padded).to(dev)
     with span("orch.tables"):
         state = tables.encoder_state(config, dev)
     with span("orch.front"):
         y = color.rgb_to_y_reference(x) if image.ndim == 3 else x
         levels = transform(y.contiguous(), state, config.dct_dtype == "int32")
-    return levels, state, padded.shape[0] // 8, padded.shape[1] // 8
+    return levels, state, x.shape[0] // 8, x.shape[1] // 8
 
 
-def grayscale_coefficients(image: np.ndarray, config: EncodeConfig | None = None,
+def grayscale_coefficients(image, config: EncodeConfig | None = None,
                            *, device=None) -> np.ndarray:
     """Run the transform of a grayscale encode.
 
-    image: uint8 [H, W] luma or [H, W, 3] RGB.
+    image: uint8 [H, W] luma or [H, W, 3] RGB, a numpy array or a tensor.
     Returns zigzag levels [nb, 64] int32 (blocks in raster order)."""
     config = config or EncodeConfig()
     levels = _levels(image, config, resolve_device(device))[0]
     return levels.T.cpu().numpy()
 
 
-def encode_grayscale(image: np.ndarray, config: EncodeConfig | None = None,
+def encode_grayscale(image, config: EncodeConfig | None = None,
                      *, device=None) -> bytes:
     """Encode an image (uint8 [H, W] or [H, W, 3] RGB) as a baseline
-    grayscale JFIF byte string, byte-identical to jpegtpu's."""
+    grayscale JFIF byte string, byte-identical to jpegtpu's. The image is
+    a numpy array or a torch tensor; one on the encode's device is staged
+    there (stage_on_card), with the same bytes."""
     with span("entry.single"):
         config = config or EncodeConfig()
         dev = resolve_device(device)

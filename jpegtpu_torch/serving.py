@@ -131,7 +131,7 @@ class _Server:
             return self._submit(image)
 
     def _submit(self, image: np.ndarray) -> dict:
-        _check_image(image)
+        _check_image(image, tensors=False)
         slot = self.slots[self.n % len(self.slots)] if self.cuda else None
         self.n += 1
         cfg, state = self.config, self.state

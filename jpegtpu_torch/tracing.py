@@ -27,16 +27,19 @@ same whichever entry runs it:
     entry.batch, entry.single    the entry points
     serve.submit, serve.finish   serving
     batch.group                  a shape group of a batch
-    io.pad, io.stack, io.upload, io.readback, io.stuff, io.jfif
-                                 host I/O
+    io.pad, io.stack, io.upload, io.on_card, io.readback, io.stuff,
+    io.jfif                      host I/O (io.on_card: staging images
+                                 that are already on the encode's device)
     orch.tables, orch.front, orch.entropy, orch.wait
                                  orchestration: tables, enqueue of the
                                  transform and of a rung's entropy chain,
                                  the host blocked on the card
     kernel.launch                one launch of a hand-written kernel
 
-Counters: `batch.groups` (groups that run the group ladder) and
-`orch.rungs` (rungs those ladders ran).
+Counters: `batch.groups` (groups that run the group ladder),
+`orch.rungs` (rungs those ladders ran), `io.chunks` and `io.chunk_waits`
+(the batch's staging ring) and `io.on_card_images` (images staged by
+io.on_card).
 
 `LAUNCHES` counts every launch of the port's kernels, by kernel, whatever
 the gate; `_build.launch` counts, and tests reset and read it.
@@ -55,7 +58,8 @@ from torch.autograd import profiler as _profiler
 LAUNCHES = {"transform": 0, "transform_rgb_y": 0, "transform_rgb_chroma": 0,
             "encode_blocks": 0, "pack_blocks": 0, "merge_mcu": 0,
             "merge_streams": 0, "merge_rows": 0, "stream_concat": 0, "stream_concat_chunked": 0,
-            "stream_concat_rows": 0, "stitch_scan": 0, "stitch_segments": 0}
+            "stream_concat_rows": 0, "stitch_scan": 0, "stitch_segments": 0,
+            "stage_images": 0}
 
 _lock = threading.Lock()
 _local = threading.local()

@@ -17,7 +17,7 @@ from jpegtpu_torch.entropy import concat, device, merge, pack, stitch
 from jpegtpu_torch.entropy import treepack
 from jpegtpu_torch.entropy.device import (dc_differences, symbol_histograms,
                                           y_dc_differences)
-from jpegtpu_torch.ops import transform
+from jpegtpu_torch.ops import stage, transform
 
 from kernel_edge_cases import (K10_CASES, K7_CAPS, K8_CASES, K9_CASES,
                                k10_case, k5_streams, k7_elements, k8_case,
@@ -826,3 +826,77 @@ def test_merge_mcu_edges_match_plain(cuda, ss, cap):
     assert _build.LAUNCHES["merge_mcu"] == before + 1
     want = merge.merge_mcu_plain(*t, 9, 31, ss)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _on_card_images(cuda, shapes, seed):
+    """Images on the card in three layouts: contiguous, a planar [C, H, W]
+    (or [W, H]) frame permuted, and a crop of every other column."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, s in enumerate(shapes):
+        t = torch.from_numpy(rng.integers(0, 256, s, np.uint8)).to(cuda)
+        if i % 3 == 1:
+            t = (t.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+                 if t.dim() == 3 else t.T.contiguous().T)
+        elif i % 3 == 2:
+            big = torch.zeros((s[0] + 1, 2 * s[1] + 3, *s[2:]),
+                              dtype=torch.uint8, device=cuda)
+            big[1:, 2::2][:, :s[1]] = t
+            t = big[1:, 2::2][:, :s[1]]
+        out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("shapes,stack", [
+    ([(13, 21), (16, 24), (1, 1), (7, 9)], (16, 24)),
+    ([(13, 21, 3), (9, 24, 3), (16, 17, 3), (1, 1, 3)], (16, 24, 3)),
+    ([(13, 21), (16, 24, 3), (5, 3), (16, 24)], (16, 24, 3)),
+    ([(1080, 1920, 3)] * 2 + [(1079, 1913, 3)], (1088, 1920, 3)),
+    ([(30, 41, 3), (32, 40)] * 35, (32, 48, 3)),  # two launches of 64 + 6
+])
+def test_stage_images_matches_plain(cuda, shapes, stack):
+    """K13 against its twin on contiguous, planar-permuted and cropped
+    images; one launch per 64 images."""
+    images = _on_card_images(cuda, shapes, len(shapes))
+    before = _build.LAUNCHES["stage_images"]
+    got = stage.stage_images(images, stack)
+    assert _build.LAUNCHES["stage_images"] == before + -(-len(images) // 64)
+    assert torch.equal(got, stage.stage_images_plain(images, stack))
+
+
+@pytest.mark.parametrize("kw", [
+    {"subsampling": "420"}, {"subsampling": "420", "quality": 75},
+    {}, {"subsampling": "420", "optimize_huffman": True},
+    {"subsampling": "444", "restart_interval": 3},
+])
+def test_card_tensor_batches_equal_numpy_batches(cuda, kw):
+    """Card tensors in three layouts, alone and mixed with numpy arrays
+    and CPU tensors, give the numpy batch's files; the batch stages them
+    with no host sync; the single-image entries give their numpy input's
+    files too."""
+    cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32", **kw)
+    shapes = [(61, 93, 3), (61, 93, 3), (61, 93), (40, 70, 3), (64, 64, 3)]
+    if cfg.n_components == 1:
+        shapes = [s[:2] for s in shapes]
+    images = _on_card_images(cuda, shapes, 8)
+    arrays = [im.cpu().numpy() for im in images]
+    encode = (jpegtpu_torch.encode_grayscale_batch if cfg.n_components == 1
+              else jpegtpu_torch.encode_color_batch)
+    want = encode(arrays, cfg)
+    assert want == encode(arrays, cfg, device="cpu")
+    assert encode(images, cfg) == want
+    mixed = [arrays[0], images[1], torch.from_numpy(arrays[2]), images[3],
+             images[4]]
+    assert encode(mixed, cfg) == want
+    single = (jpegtpu_torch.encode_grayscale if cfg.n_components == 1
+              else jpegtpu_torch.encode_color)
+    assert [single(im, cfg) for im in images[:3]] == [
+        single(im, cfg) for im in arrays[:3]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stack = batch._stage(images[:2], (64, 96, *shapes[0][2:]), cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(stack, stage.stage_images_plain(
+        images[:2], (64, 96, *shapes[0][2:])))
