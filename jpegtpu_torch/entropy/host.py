@@ -216,14 +216,17 @@ def encode_scan(zz: np.ndarray, table_sel: np.ndarray | None = None,
 
 
 def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray,
-                    rst_phase: int = 0, trailing: bool = False) -> bytes:
+                    rst_phase: int = 0, trailing: bool = False,
+                    counts: np.ndarray | None = None) -> bytes:
     """One word buffer of byte-aligned segments back to back (uint32,
     bytes MSB-first) -> stuff(seg_0) RST stuff(seg_1) RST ... (markers
     cycling RST0..RST7 from RST<rst_phase>, none after the last unless
     `trailing`). Native when the C++ runtime builds, else numpy (the same
-    bytes)."""
+    bytes). counts: the native stuffer's chunk tally
+    (native.scan_from_words); numpy adds nothing to it."""
     if native.available():
-        return native.scan_from_words(words, seg_bytes, rst_phase, trailing)
+        return native.scan_from_words(words, seg_bytes, rst_phase, trailing,
+                                      counts)
     raw = np.frombuffer(np.asarray(words, np.uint32).astype(">u4").tobytes(),
                         np.uint8)
     ends = np.cumsum(seg_bytes)

@@ -46,12 +46,12 @@ def _load():
         ]
         lib.jt_words_to_stuffed.restype = ctypes.c_size_t
         lib.jt_words_to_stuffed.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.jt_scan_from_words.restype = ctypes.c_size_t
         lib.jt_scan_from_words.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.jt_bmp_to_rgb.restype = None
         lib.jt_bmp_to_rgb.argtypes = [
@@ -77,8 +77,23 @@ def stuff_bytes(raw: np.ndarray) -> bytes:
     return out[:n].tobytes()
 
 
-def words_to_stuffed(words: np.ndarray, total_bits: int) -> bytes:
-    """Packed MSB-aligned uint32 word stream -> stuffed entropy bytes."""
+def _counts_ptr(counts: np.ndarray | None):
+    """The address of a chunk tally, or None (not counted)."""
+    if counts is None:
+        return None
+    if (counts.dtype != np.int64 or counts.shape != (2,)
+            or not counts.flags.c_contiguous or not counts.flags.writeable):
+        raise ValueError("counts must be a writeable int64 array of 2")
+    return counts.ctypes.data
+
+
+def words_to_stuffed(words: np.ndarray, total_bits: int,
+                     counts: np.ndarray | None = None) -> bytes:
+    """Packed MSB-aligned uint32 word stream -> stuffed entropy bytes.
+
+    The stuffer takes the stream 8 bytes a step; counts, an int64 array
+    of 2 if given, gains the 8-byte chunks tested in [0] and those that
+    held a 0xFF (stuffed a byte at a time) in [1]."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native runtime unavailable")
@@ -87,18 +102,22 @@ def words_to_stuffed(words: np.ndarray, total_bits: int) -> bytes:
     if words.size * 4 < nbytes:
         raise ValueError(f"{words.size} words hold fewer than {nbytes} bytes")
     out = np.empty(2 * nbytes + 4, dtype=np.uint8)
-    n = lib.jt_words_to_stuffed(words.ctypes.data, int(total_bits), out.ctypes.data)
+    n = lib.jt_words_to_stuffed(words.ctypes.data, int(total_bits),
+                                out.ctypes.data, _counts_ptr(counts))
     return out[:n].tobytes()
 
 
 def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray,
-                    rst_phase: int = 0, trailing: bool = False) -> bytes:
+                    rst_phase: int = 0, trailing: bool = False,
+                    counts: np.ndarray | None = None) -> bytes:
     """One stitched word buffer of byte-aligned segments -> the full
     RST-delimited stuffed scan (stuff(seg_0) RST stuff(seg_1) RST ...) in
     one native pass. seg_bytes: per-segment byte lengths; rst_phase: the
     index of the marker after segment 0 (markers cycle RST0..RST7);
     trailing: also put a marker after the last segment (a scan that
-    another buffer continues, as a shard's is by the next shard's)."""
+    another buffer continues, as a shard's is by the next shard's);
+    counts: as words_to_stuffed's, summed over the segments (a segment's
+    chunks start at its first word boundary)."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native runtime unavailable")
@@ -111,6 +130,7 @@ def scan_from_words(words: np.ndarray, seg_bytes: np.ndarray,
     n = lib.jt_scan_from_words(
         words.ctypes.data, seg_bytes.ctypes.data, seg_bytes.size,
         int(rst_phase), int(bool(trailing)), out.ctypes.data,
+        _counts_ptr(counts),
     )
     return out[:n].tobytes()
 

@@ -330,15 +330,24 @@ def segments_from_streams(streams: np.ndarray, totals) -> list:
     uint32 holding each stream's bits from word 0, and total bits [B]
     (padded to the byte) -> the stuffed bytes of each stream."""
     out = []
+    chunks = np.zeros(2, np.int64)  # 8-byte chunks stuffed, those with a 0xFF
     with span("io.stuff"):
         for words, total_bits in zip(streams, totals):
             words = words[: (total_bits + 31) // 32]
             if native.available():
-                out.append(native.words_to_stuffed(words, total_bits))
+                out.append(native.words_to_stuffed(words, total_bits, chunks))
             else:
                 raw = np.frombuffer(words.astype(">u4").tobytes(), np.uint8)
                 out.append(entropy_host.stuff_bytes(raw[: total_bits // 8]))
+        _count_chunks(chunks)
     return out
+
+
+def _count_chunks(chunks: np.ndarray) -> None:
+    """Book a native stuffer's chunk tally (none from the numpy twin)."""
+    if chunks[0]:
+        count("io.stuff_chunks", int(chunks[0]))
+        count("io.stuff_chunks_slow", int(chunks[1]))
 
 
 def finish_restart_scan(words: torch.Tensor, bits: torch.Tensor,
@@ -358,9 +367,13 @@ def finish_restart_scan(words: torch.Tensor, bits: torch.Tensor,
     nwords = (total_bits + 31) // 32
     with span("io.readback"):
         host = torch.cat([stream[:nwords], seg_tot]).cpu().numpy()
+    chunks = np.zeros(2, np.int64)
     with span("io.stuff"):
-        return entropy_host.scan_from_words(
-            host[:nwords].view(np.uint32), host[nwords:].astype(np.int64) // 8)
+        scan = entropy_host.scan_from_words(
+            host[:nwords].view(np.uint32), host[nwords:].astype(np.int64) // 8,
+            counts=chunks)
+        _count_chunks(chunks)
+    return scan
 
 
 _CAP_HISTORY_MAX = 4096

@@ -13,7 +13,7 @@ import torch
 from torch.autograd import profiler as autograd_profiler
 
 import jpegtpu_torch
-from jpegtpu_torch import EncodeConfig, _build, tracing
+from jpegtpu_torch import EncodeConfig, _build, native, tracing
 
 from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
 
@@ -213,13 +213,30 @@ BATCH_SPANS = {"entry.batch", "batch.group", "io.pad", "io.stack",
                "orch.wait", "io.readback", "io.stuff", "io.jfif"}
 
 
+def _stuff_counts(files) -> dict:
+    """The native stuffer's tally for these files' single-segment scans:
+    the 8-byte chunks of each unstuffed scan, and those with a 0xFF."""
+    chunks = slow = 0
+    for f in files:
+        start = f.index(b"\xff\xda")
+        start += 2 + int.from_bytes(f[start + 2:start + 4], "big")
+        s = np.frombuffer(f[start:-2], np.uint8)
+        raw = s[np.r_[True, ~((s[:-1] == 0xFF) & (s[1:] == 0))]]
+        body = raw[:raw.size // 8 * 8].reshape(-1, 8)
+        chunks += len(body)
+        slow += int((body == 0xFF).any(axis=1).sum())
+    if not (chunks and native.available()):
+        return {}
+    return {"io.stuff_chunks": chunks, "io.stuff_chunks_slow": slow}
+
+
 def test_a_two_group_color_batch_records_its_spans_and_counters():
     images = _images([(37, 53, 3), (20, 30, 3), (37, 53, 3)], 3)
     with tracing.recording():
-        jpegtpu_torch.encode_color_batch(images, COLOR, **CPU)
+        files = jpegtpu_torch.encode_color_batch(images, COLOR, **CPU)
     t = tracing.totals()
     assert t["counts"] == {"batch.groups": 2, "orch.rungs": 2,
-                           "io.chunks": 2}
+                           "io.chunks": 2, **_stuff_counts(files)}
     # kernel.launch is the card's: the plain versions launch nothing
     assert set(t["spans"]) == BATCH_SPANS
     assert t["spans"]["entry.batch"]["calls"] == 1
