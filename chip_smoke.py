@@ -97,6 +97,7 @@ from jpegtpu_torch.entropy import treepack
 from jpegtpu_torch.entropy.device import (MAX_WORDS_PER_BLOCK,
                                           assemble_histograms, dc_differences,
                                           symbol_histograms, y_dc_differences)
+from jpegtpu_torch.io import transfer
 from jpegtpu_torch.ops import stage, transform
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2489,11 +2490,11 @@ def on_card_phases(dev, say) -> list:
     on the frames beside K13's bound (3 bytes a pixel read, 3 written),
     by CUDA events and by the host clock. Then encode_color_batch at the
     video configuration (Q75, 4:2:0) on the views: one K13 launch, its
-    span and counter and none of the ring's, no host sync in _stage, the
-    files of the numpy route, and both routes' wall time; with K13's twin
-    in its place, the same files and the time that costs; an int32
-    batch and encode_color on the views equal to the CPU path and the
-    numpy input. Returns K13's kernel entry."""
+    span and counter and none of the ring's, no host sync in
+    transfer.stage, the files of the numpy route, and both routes' wall
+    time; with K13's twin in its place, the same files and the time that
+    costs; an int32 batch and encode_color on the views equal to the CPU
+    path and the numpy input. Returns K13's kernel entry."""
     frames = batch_images_on_card(VIDEO_N, VIDEO_H, VIDEO_W, True, seed=18)
     planar = frames.permute(0, 3, 1, 2).contiguous()
     del frames
@@ -2552,7 +2553,7 @@ def on_card_phases(dev, say) -> list:
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        batch._stage(views, rgb, dev)
+        transfer.stage(views, rgb, dev)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     secs = {}
@@ -2560,13 +2561,13 @@ def on_card_phases(dev, say) -> list:
         secs[route] = wall_ms(lambda: batch.encode_color_batch(images, cfg),
                               reps=3) / 1e3
     try:  # the card route with K13's twin in its place
-        pipeline.stage_images = stage.stage_images_plain
+        transfer.stage_images = stage.stage_images_plain
         check(batch.encode_color_batch(views, cfg) == want,
               "on-card batch with K13's twin: files != the numpy route's")
         secs["card_twin"] = wall_ms(
             lambda: batch.encode_color_batch(views, cfg), reps=3) / 1e3
     finally:
-        pipeline.stage_images = stage.stage_images
+        transfer.stage_images = stage.stage_images
     say("on_card_batch", shape=[VIDEO_N, VIDEO_H, VIDEO_W, 3],
         quality=cfg.quality, files_equal_numpy_route=VIDEO_N,
         bytes=sum(map(len, got)), launches={

@@ -18,18 +18,13 @@ MCU); K8 at the batch's segment width cuts the block (MCU) rows into
 segments that never cross an image, and K11 lays each image's segments
 back to back in a slab of its own and pads its final byte
 (entropy.concat.concat_segments). A share's images reach its device
-through a ring of two host buffers reused for the life of the process
-(pinned for a CUDA device): chunks of whole images are copied into a
-buffer by a few threads, edge-padded in place and copied to the card
-asynchronously, so the host fills one buffer while the other copies.
-Images that are already on the share's device (torch tensors) are
-edge-padded and stacked there by one K13 launch (ops.stage), with no
-copy across the bus and no host wait. The host reads (any overflow,
-every image's total bits) once, then the valid words of all images in
-one copy, and stuffs and assembles each file. An overflow climbs the
-capacity ladder with the same kernels; the transform runs once. jpegtpu
-pads each group with blank images to a power of two to bound its
-recompiles; nothing compiles here, so no image is added.
+through io.transfer.stage (the process's pinned ring, or one K13 launch
+for images already on the device). The host reads (any overflow, every
+image's total bits) once, then the valid words of all images in one copy
+(io.transfer.read_segments), and stuffs and assembles each file. An
+overflow climbs the capacity ladder with the same kernels; the transform
+runs once. jpegtpu pads each group with blank images to a power of two to
+bound its recompiles; nothing compiles here, so no image is added.
 
 With optimize_huffman a group shares one set of 2-pass tables: the
 symbols of the whole stack are counted once, and K4 encodes the stack
@@ -49,11 +44,7 @@ the rules read the rung.
 from __future__ import annotations
 
 import itertools
-import math
-import threading
-from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
 import torch
 
 from . import tables
@@ -63,119 +54,17 @@ from .config import EncodeConfig
 from .entropy.concat import LANES, concat_segments, segment_width
 from .entropy.device import dc_differences, symbol_histograms
 from .entropy.pack import encode_blocks
-from .io import jfif
+from .io import jfif, transfer
 from .ops import color
-from .ops.blocks import (COPY_THREADS, copy_into, pad_in_place,
-                         padded_dims_color, sampling_factors, slots_per_mcu)
+from .ops.blocks import padded_dims_color, sampling_factors, slots_per_mcu
 from .ops.transform import transform, transform_rgb_chroma, transform_rgb_y
 from .pipeline import (_check_image, capacity_ladder, encode_grayscale,
-                       kernel_cap, optimal_tables, resolve_device,
-                       segments_from_streams, source_image, stage_on_card)
+                       kernel_cap, optimal_tables, resolve_device)
 from .tracing import count, span
 
 # jpegtpu's transform tile height in pixels (pallas_transform.TILE_H), which
 # its table-sharing rule counts in.
 _TILE_H = 64
-
-# Bytes of a staging buffer: a chunk is as many whole images as fit, or one
-# image where an image is larger (the buffer then grows to it).
-_CHUNK_BYTES = 64 << 20
-
-
-class _Ring:
-    """Two host buffers that stage batch shares to their devices (pinned
-    for a CUDA device, plain for the CPU), each with the event of its last
-    copy to the card, and the threads that fill them. The lock holds one
-    share's staging at a time."""
-
-    def __init__(self, pinned: bool):
-        self.pinned = pinned
-        self.buffers = [None, None]
-        self.copied = [None, None]
-        self.turn = 0
-        self.lock = threading.Lock()
-        self.copiers = ThreadPoolExecutor(COPY_THREADS)
-
-    def take(self, n: int) -> tuple:
-        """(index, its first n bytes) of the next buffer, once its last
-        copy to the card has completed."""
-        i, self.turn = self.turn, self.turn ^ 1
-        event = self.copied[i]
-        if event is not None and not event.query():
-            count("io.chunk_waits")
-            with span("io.upload"):
-                event.synchronize()
-        if self.buffers[i] is None or self.buffers[i].numel() < n:
-            self.buffers[i] = torch.empty(max(n, _CHUNK_BYTES),
-                                          dtype=torch.uint8,
-                                          pin_memory=self.pinned)
-        return i, self.buffers[i][:n]
-
-
-_rings: dict = {}  # pinned -> the process's _Ring, made on first use
-_rings_made = threading.Lock()
-
-
-def _ring(pinned: bool) -> _Ring:
-    with _rings_made:
-        if pinned not in _rings:
-            _rings[pinned] = _Ring(pinned)
-        return _rings[pinned]
-
-
-def _stage(images: list, shape: tuple, dev: torch.device) -> torch.Tensor:
-    """The images edge-padded to `shape` ([ph, pw] or [ph, pw, 3]; a 2-D
-    image into 3 channels is repeated to each) and stacked on dev as one
-    [len(images) * ph, pw(, 3)] uint8 tensor. Host images go through the
-    ring (_stage_ring); images already on dev (pipeline.source_image) are
-    staged there by K13 (pipeline.stage_on_card). A share that holds both
-    stages its host images through the ring first and hands their padded
-    rows to K13 with the others."""
-    images = [source_image(image, dev) for image in images]
-    on_card = [isinstance(image, torch.Tensor) for image in images]
-    if not any(on_card):
-        return _stage_ring(images, shape, dev)
-    if not all(on_card):
-        rows = iter(_stage_ring([im for im, o in zip(images, on_card)
-                                 if not o], shape, dev).split(shape[0]))
-        images = [im if o else next(rows) for im, o in zip(images, on_card)]
-    return stage_on_card(images, shape)
-
-
-def _stage_ring(images: list, shape: tuple, dev: torch.device
-                ) -> torch.Tensor:
-    """_stage of host images: through the ring in chunks of whole images.
-    For each chunk: wait for its buffer's last copy (io.upload), copy the
-    images in by bands of rows on the copying threads (io.stack),
-    replicate the edges in place (io.pad), and copy the buffer to dev
-    (io.upload; from pinned memory without waiting, so the next chunk
-    fills while this one copies, and the kernels queued after it on the
-    stream wait for it)."""
-    cuda = dev.type == "cuda"
-    ring = _ring(cuda)
-    ph, size = shape[0], math.prod(shape)
-    per = max(1, _CHUNK_BYTES // size)
-    out = torch.empty((len(images) * ph, *shape[1:]), dtype=torch.uint8,
-                      device=dev)
-    with ring.lock:
-        for lo in range(0, len(images), per):
-            chunk = images[lo:lo + per]
-            count("io.chunks")
-            i, buf = ring.take(len(chunk) * size)
-            slots = buf.view(len(chunk), *shape).numpy()
-            with span("io.stack"):
-                copy_into(slots, chunk, ring.copiers)
-            with span("io.pad"):
-                for slot, image in zip(slots, chunk):
-                    pad_in_place(slot, *image.shape[:2])
-            with span("io.upload"):
-                out[lo * ph:(lo + len(chunk)) * ph].copy_(
-                    buf.view(-1, *shape[1:]), non_blocking=True)
-                if cuda:
-                    ring.copied[i] = torch.cuda.Event()
-                    ring.copied[i].record(torch.cuda.current_stream(dev))
-    return out
-
 
 def shares_gray_tables(ph: int, pw: int, cap: int) -> bool:
     """Whether jpegtpu encodes a gray optimize_huffman group of padded
@@ -281,10 +170,7 @@ def _encode_stacks(parts, caps, nbh: int, nbw: int, pad_ones: bool):
             continue
         scans = []
         for (streams, _), h in zip(outs, heads):
-            nwords = (max(h[1:]) + 31) // 32
-            with span("io.readback"):
-                words_np = streams[:, :nwords].cpu().numpy().view(np.uint32)
-            scans += segments_from_streams(words_np, h[1:])
+            scans += transfer.read_segments(streams, h[1:])
         return scans
     return None
 
@@ -299,7 +185,8 @@ def _gray_group(images: list, ph: int, pw: int, config: EncodeConfig,
     nbh, nbw = ph // 8, pw // 8
     fronts = []
     for dev, lo, hi in _shares(len(images), devs, nbw):
-        plane = _stage(images[lo:hi], (ph, pw, *images[0].shape[2:]), dev)
+        plane = transfer.stage(images[lo:hi],
+                               (ph, pw, *images[0].shape[2:]), dev)
         with span("orch.tables"):
             state = tables.encoder_state(config, dev)
         with span("orch.front"):
@@ -356,7 +243,7 @@ def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
     fronts = []
     for dev, lo, hi in _shares(len(images), devs, nmcw):
         b = hi - lo
-        rgb = _stage(images[lo:hi], (ph, pw, 3), dev)
+        rgb = transfer.stage(images[lo:hi], (ph, pw, 3), dev)
         with span("orch.tables"):
             state = tables.encoder_state(config, dev)
         with span("orch.front"):
@@ -404,7 +291,7 @@ def _color_group(images: list, ph: int, pw: int, config: EncodeConfig,
 def encode_grayscale_batch(images: list, config: EncodeConfig | None = None,
                            mesh=None, *, device=None) -> list:
     """Encode uint8 images ([H, W] luma or [H, W, 3] RGB; numpy arrays or
-    torch tensors, which may be mixed: see pipeline.source_image) as
+    torch tensors, which may be mixed: see io.transfer.source_image) as
     baseline grayscale JFIF byte strings, in input order, byte-identical to
     jpegtpu's batch.encode_grayscale_batch (and so to its single-image
     encodes, apart from the tables that optimize_huffman shares). mesh:

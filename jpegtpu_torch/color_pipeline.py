@@ -43,14 +43,14 @@ from .entropy.device import (dc_differences, symbol_histograms,
 from .entropy.merge import (mcu_luma_blocks, merge_mcu, merge_streams,
                             slot_major_streams)
 from .entropy.pack import encode_blocks
-from .io import jfif
-from .ops.blocks import (mcu_dims, pad_edge, padded_dims_color,
-                         sampling_factors, slots_per_mcu)
+from .io import jfif, transfer
+from .ops.blocks import (mcu_dims, padded_dims_color, sampling_factors,
+                         slots_per_mcu)
 from .ops.transform import transform_rgb_chroma, transform_rgb_y
 from .parallel import multihost, sharding
 from .pipeline import (_check_image, capacity_ladder, finish_streams,
                        host_scan, kernel_cap, optimal_tables, record_cap,
-                       resolve_device, source_image, stage_on_card)
+                       resolve_device)
 from .tracing import span
 
 
@@ -88,25 +88,16 @@ def color_concat_mode(ph: int, pw: int, subsampling: str, cap: int) -> str:
 
 
 def component_levels(image, config: EncodeConfig, dev: torch.device):
-    """Host edge-pad to the MCU -> device (or K13 for an image on the
-    device) -> K2 and K3. Returns (luma levels [64, ny], chroma levels
-    [64, 2 * nmcu] (Cb then Cr), encoder state, padded (ph, pw))."""
+    """Edge-pad to the MCU and stage on dev as RGB (io.transfer.stage:
+    the ring, or K13 for an image on the device) -> K2 and K3. Returns
+    (luma levels [64, ny], chroma levels [64, 2 * nmcu] (Cb then Cr),
+    encoder state, padded (ph, pw))."""
     if config.n_components != 3:
         raise ValueError("encode_color needs a color subsampling "
                          "(420, 422 or 444); use encode_grayscale for gray")
     _check_image(image)
-    image = source_image(image, dev)
-    if isinstance(image, torch.Tensor):
-        rgb = stage_on_card([image], (*padded_dims_color(
-            *image.shape[:2], config.subsampling), 3))
-    else:
-        with span("io.pad"):
-            if image.ndim == 2:
-                image = np.repeat(image[..., None], 3, axis=-1)
-            padded = np.ascontiguousarray(
-                pad_edge(image, *mcu_dims(config.subsampling)))
-        with span("io.upload"):
-            rgb = torch.from_numpy(padded).to(dev)
+    rgb = transfer.stage([image], (*padded_dims_color(
+        *image.shape[:2], config.subsampling), 3), dev)
     with span("orch.tables"):
         state = tables.encoder_state(config, dev)
     int_mode = config.dct_dtype == "int32"
@@ -139,7 +130,7 @@ def encode_color(image, config: EncodeConfig | None = None,
     RGB) as a baseline YCbCr JFIF byte string, byte-identical to
     jpegtpu's. The default config is 4:2:0 at Q50. The image is a numpy
     array or a torch tensor; one on the encode's device is staged there
-    (pipeline.stage_on_card), with the same bytes."""
+    (io.transfer.stage_on_card), with the same bytes."""
     with span("entry.single"):
         config = config or EncodeConfig(subsampling="420")
         dev = resolve_device(device)

@@ -11,12 +11,11 @@ the encoder share one DCT.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from . import tables
 from .config import EncodeConfig
+from .io import transfer
 from .ops import color
-from .ops.blocks import pad_edge
 from .ops.transform import (dct_float, dct_int, level_shift_blocks,
                             quantize_float, quantize_int, zigzag)
 from .pipeline import _check_image, resolve_device
@@ -38,7 +37,9 @@ def first_block_report(image: np.ndarray, config: EncodeConfig | None = None,
     config = config or EncodeConfig()
     _check_image(image, tensors=False)
     dev = resolve_device(device)
-    x = torch.from_numpy(np.ascontiguousarray(pad_edge(image))).to(dev)
+    h, w = image.shape[:2]
+    x = transfer.stage([image], (-(-h // 8) * 8, -(-w // 8) * 8,
+                                 *image.shape[2:]), dev)
     y = color.rgb_to_y_reference(x) if image.ndim == 3 else x
     nb = (y.shape[0] // 8) * (y.shape[1] // 8)
     if not -nb <= block < nb:

@@ -1,1 +1,1 @@
-"""Container I/O: BMP in, JFIF out."""
+"""Container I/O: BMP in, JFIF out, and the host-card transfers."""

@@ -1,7 +1,8 @@
 """Block layout helpers (counterpart of `jpegtpu/ops/blocks.py`, and of
 the MCU geometry in `jpegtpu/color_pipeline.py`).
 
-Pad-to-multiple-of-8 (or of the MCU) with edge replication: the reference
+Pad-to-multiple-of-8 (or of the MCU) with edge replication, in place in
+a staging buffer (copy_into, pad_in_place; io.transfer): the reference
 clamps source coordinates, which is exactly edge-replicate padding.
 
 A color MCU (T.81 A.2.3) covers fy x fx luma blocks and one Cb and one Cr
@@ -34,18 +35,6 @@ def mcu_dims(subsampling: str) -> tuple[int, int]:
 def padded_dims_color(h: int, w: int, subsampling: str) -> tuple[int, int]:
     mh, mw = mcu_dims(subsampling)
     return -(-h // mh) * mh, -(-w // mw) * mw
-
-
-def pad_edge(img: np.ndarray, mh: int = 8, mw: int = 8) -> np.ndarray:
-    """Edge-replicate pad a [H, W] (or [H, W, C]) image so H is a
-    multiple of mh and W of mw (a block, or a color MCU: `mcu_dims`).
-    Runs on the host, before the image goes to the device, as in jpegtpu."""
-    h, w = img.shape[0], img.shape[1]
-    ph, pw = -(-h // mh) * mh, -(-w // mw) * mw
-    if ph == h and pw == w:
-        return img
-    pad = [(0, ph - h), (0, pw - w)] + [(0, 0)] * (img.ndim - 2)
-    return np.pad(img, pad, mode="edge")
 
 
 COPY_THREADS = 4  # host threads that copy images into staging memory
@@ -82,11 +71,3 @@ def pad_in_place(dst: np.ndarray, h: int, w: int) -> None:
         dst[:h, w:] = dst[:h, w - 1:w]
     if h < dst.shape[0]:
         dst[h:] = dst[h - 1:h]
-
-
-def pad_into(dst: np.ndarray, image: np.ndarray, pool=None) -> None:
-    """Edge-replicate `image` ([H, W] or [H, W, C]; [H, W] into a 3-channel
-    dst is repeated to each channel) into the larger `dst` (copy_into,
-    then pad_in_place)."""
-    copy_into(dst[None], [image], pool)
-    pad_in_place(dst, *image.shape[:2])

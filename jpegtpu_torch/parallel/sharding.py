@@ -37,18 +37,16 @@ import torch
 
 from .. import tables
 from ..config import EncodeConfig
-from ..entropy import host as entropy_host
 from ..entropy.concat import LANES, encode_segments, stitch_plan
 from ..entropy.device import (assemble_histograms, dc_differences,
                               symbol_histograms)
 from ..entropy.pack import encode_blocks
 from ..entropy.stitch import stitch_segments
-from ..io import jfif
+from ..io import jfif, transfer
 from ..ops import color
-from ..ops.blocks import pad_into
 from ..ops.transform import transform
 from ..pipeline import (_check_image, _optimal_specs, capacity_ladder,
-                        kernel_cap, resolve_device, segments_from_streams)
+                        kernel_cap, resolve_device)
 from . import multihost
 
 
@@ -147,16 +145,13 @@ def restart_config(config: EncodeConfig, interval: int) -> EncodeConfig:
 def band(image: np.ndarray, i: int, n: int, ph: int, pw: int,
          device) -> torch.Tensor:
     """Shard i of n (whole rows) of the image edge-padded to ph x pw, on
-    `device`. Only a band that reaches past the image is padded on the
-    host, and only that band."""
-    ih, iw = image.shape[:2]
+    `device`: its rows of the image (the last row where the band starts
+    below it) staged by io.transfer.stage."""
+    ih = image.shape[0]
     r0, r1 = i * ph // n, (i + 1) * ph // n
-    src = image[r0:min(r1, ih)] if r0 < ih else image[ih - 1:]
-    if src.shape[0] == r1 - r0 and iw == pw:
-        return torch.from_numpy(np.ascontiguousarray(src)).to(device)
-    dst = np.empty((r1 - r0, pw) + image.shape[2:], np.uint8)
-    pad_into(dst, src)
-    return torch.from_numpy(dst).to(device)
+    rows = image[r0:min(r1, ih)] if r0 < ih else image[ih - 1:]
+    return transfer.stage([rows], (r1 - r0, pw, *image.shape[2:]),
+                          torch.device(device))
 
 
 class Shard(NamedTuple):
@@ -207,22 +202,16 @@ def encode_shards(shards, config: EncodeConfig, n: int, k: int,
         if not per_segment:
             if overflowed:
                 continue
-            parts = []
-            for s, (st, seg_tot, _), h in zip(shards, out, heads):
-                nwords = (h[1] + 31) // 32
-                host = torch.cat([st[:nwords], seg_tot]).cpu().numpy()
-                parts.append(entropy_host.scan_from_words(
-                    host[:nwords].view(np.uint32),
-                    host[nwords:].astype(np.int64) // 8,
-                    rst_phase=(s.index * k) & 7, trailing=s.index < n - 1))
+            parts = [transfer.read_restart_scan(
+                st, seg_tot, h[1], rst_phase=(s.index * k) & 7,
+                trailing=s.index < n - 1)
+                for s, (st, seg_tot, _), h in zip(shards, out, heads)]
             return [b"".join(parts)], specs
         if multihost.any_process(overflowed):
             continue
         ids, segments = [], []
         for s, (st, _, _), h in zip(shards, out, heads):
-            nwords = (max(h[1:]) + 31) // 32
-            segments += segments_from_streams(
-                st[:, :nwords].cpu().numpy().view(np.uint32), h[1:])
+            segments += transfer.read_segments(st, h[1:])
             ids += range(s.index * k, (s.index + 1) * k)
         return multihost.gather_segments(ids, segments, n * k), specs
     raise RuntimeError("worst-case entropy capacity overflowed (bug)")

@@ -7,18 +7,19 @@ and _encode_grayscale_optimized_restart_device, capacity_ladder,
 record_cap, encode_file), and the helpers the color path (color_pipeline)
 shares.
 
-The main path at the default EncodeConfig runs four kernels on the card:
-K1 transform (ops.transform) -> DC differences -> K4 symbolize + pack
-(entropy.pack) -> K8 row merge + K9 stream concat with the tail
-padding (entropy.concat). Frames whose stream buffer is past jpegtpu's
-resident budget (gray_concat_mode; the 7680 x 4320 frame at every rung)
-take K10's tiled concat in place of K9. The host reads (overflow, total
-bits), then the valid word prefix, and stuffs it with the native
-runtime (with stuff="device" the card stuffs it, and the host reads the
-stuffed bytes). A block that overflows the per-block capacity retries
-the entropy chain at the next rung of the capacity ladder (8 -> 16 -> 53
-words; a configured first rung past 53 runs the kernels at 53,
-kernel_cap); the transform runs once.
+The main path at the default EncodeConfig stages the image on the card
+(io.transfer.stage) and runs four kernels there: K1 transform
+(ops.transform) -> DC differences -> K4 symbolize + pack (entropy.pack)
+-> K8 row merge + K9 stream concat with the tail padding
+(entropy.concat). Frames whose stream buffer is past jpegtpu's resident
+budget (gray_concat_mode; the 7680 x 4320 frame at every rung) take
+K10's tiled concat in place of K9. The host reads (overflow, total
+bits), then the valid word prefix, and stuffs it with the native runtime
+(io.transfer.read_segments; with stuff="device" the card stuffs it, and
+the host reads the stuffed bytes). A block that overflows the per-block
+capacity retries the entropy chain at the next rung of the capacity
+ladder (8 -> 16 -> 53 words; a configured first rung past 53 runs the
+kernels at 53, kernel_cap); the transform runs once.
 
 With restart_interval the DC chain resets at every segment and K12
 (entropy.stitch) takes the place of K8 + K9: it lays the byte-aligned,
@@ -36,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import native, tables
+from . import tables
 from .config import EncodeConfig
 from .entropy import host as entropy_host
 from .entropy.concat import column_groups, concat_mode, concat_stream
@@ -45,12 +46,10 @@ from .entropy.device import (MAX_WORDS_PER_BLOCK, assemble_histograms,
                              symbol_histograms)
 from .entropy.pack import encode_blocks
 from .entropy.stitch import stitch_segments
-from .io import bmp, jfif
+from .io import bmp, jfif, transfer
 from .ops import color
-from .ops.blocks import pad_edge
-from .ops.stage import stage_images
 from .ops.transform import transform
-from .tracing import count, span
+from .tracing import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,54 +82,21 @@ def _check_image(image, tensors: bool = True) -> None:
         )
 
 
-def source_image(image, dev: torch.device):
-    """Where an encode on `dev` reads an image from: a tensor on dev as it
-    is (the on-card route, stage_on_card); a tensor on another device
-    copied to dev first (without a host wait where dev is a card); a CPU
-    tensor for a card, and a numpy array, as a numpy array (the host
-    route: edge pad, copy up)."""
-    if not isinstance(image, torch.Tensor):
-        return image
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if image.device == dev:
-        return image
-    if image.device.type == "cpu":
-        return image.numpy()
-    return image.to(dev, non_blocking=dev.type == "cuda")
-
-
-def stage_on_card(images: list, shape: tuple) -> torch.Tensor:
-    """The on-card route: images already on the encode's device,
-    edge-padded and stacked there by K13 (ops.stage) into one [len(images)
-    * ph, pw(, 3)] tensor, with no copy across the bus and no host wait."""
-    with span("io.on_card"):
-        count("io.on_card_images", len(images))
-        return stage_images(images, shape)
-
-
 def _levels(image, config: EncodeConfig, dev: torch.device):
-    """Host edge-pad -> device (or K13 for an image on the device) ->
-    luma -> K1. Returns (levels [64, nb] int32, encoder state, nbh,
-    nbw)."""
+    """Edge-pad and stage on dev (io.transfer.stage: the ring, or K13 for
+    an image on the device) -> luma -> K1. Returns (levels [64, nb] int32,
+    encoder state, nbh, nbw)."""
     if config.n_components != 1:
         raise ValueError(f"subsampling={config.subsampling!r} is a color "
                          "config: use encode_color")
     _check_image(image)
-    image = source_image(image, dev)
-    if isinstance(image, torch.Tensor):
-        h, w = image.shape[:2]
-        x = stage_on_card([image], (-(-h // 8) * 8, -(-w // 8) * 8,
-                                    *image.shape[2:]))
-    else:
-        with span("io.pad"):
-            padded = np.ascontiguousarray(pad_edge(image))
-        with span("io.upload"):
-            x = torch.from_numpy(padded).to(dev)
+    h, w = image.shape[:2]
+    x = transfer.stage([image], (-(-h // 8) * 8, -(-w // 8) * 8,
+                                 *image.shape[2:]), dev)
     with span("orch.tables"):
         state = tables.encoder_state(config, dev)
     with span("orch.front"):
-        y = color.rgb_to_y_reference(x) if image.ndim == 3 else x
+        y = color.rgb_to_y_reference(x) if x.dim() == 3 else x
         levels = transform(y.contiguous(), state, config.dct_dtype == "int32")
     return levels, state, x.shape[0] // 8, x.shape[1] // 8
 
@@ -151,7 +117,7 @@ def encode_grayscale(image, config: EncodeConfig | None = None,
     """Encode an image (uint8 [H, W] or [H, W, 3] RGB) as a baseline
     grayscale JFIF byte string, byte-identical to jpegtpu's. The image is
     a numpy array or a torch tensor; one on the encode's device is staged
-    there (stage_on_card), with the same bytes."""
+    there (io.transfer.stage_on_card), with the same bytes."""
     with span("entry.single"):
         config = config or EncodeConfig()
         dev = resolve_device(device)
@@ -315,39 +281,14 @@ def scan_stream(words: torch.Tensor, bits: torch.Tensor,
 
 def read_scan(stream: torch.Tensor, count: int,
               stuff_on_device: bool = False) -> bytes:
-    """The host half of finish_scan: one readback of the valid prefix of
-    a scan_stream (count: its head's total) -> stuffed scan bytes."""
-    with span("io.readback"):
-        if stuff_on_device:
+    """The host half of finish_scan: the valid prefix of a scan_stream
+    (count: its head's total) -> stuffed scan bytes
+    (io.transfer.read_segments), or with stuff_on_device one readback of
+    the bytes stuffed on the device."""
+    if stuff_on_device:
+        with span("io.readback"):
             return stream[:count].cpu().numpy().tobytes()
-        nwords = (count + 31) // 32
-        words_np = stream[:nwords].cpu().numpy().view(np.uint32)
-    return segments_from_streams(words_np[None], [count])[0]
-
-
-def segments_from_streams(streams: np.ndarray, totals) -> list:
-    """Host finish of per-image (or per-segment) streams: words [B, W]
-    uint32 holding each stream's bits from word 0, and total bits [B]
-    (padded to the byte) -> the stuffed bytes of each stream."""
-    out = []
-    chunks = np.zeros(2, np.int64)  # 8-byte chunks stuffed, those with a 0xFF
-    with span("io.stuff"):
-        for words, total_bits in zip(streams, totals):
-            words = words[: (total_bits + 31) // 32]
-            if native.available():
-                out.append(native.words_to_stuffed(words, total_bits, chunks))
-            else:
-                raw = np.frombuffer(words.astype(">u4").tobytes(), np.uint8)
-                out.append(entropy_host.stuff_bytes(raw[: total_bits // 8]))
-        _count_chunks(chunks)
-    return out
-
-
-def _count_chunks(chunks: np.ndarray) -> None:
-    """Book a native stuffer's chunk tally (none from the numpy twin)."""
-    if chunks[0]:
-        count("io.stuff_chunks", int(chunks[0]))
-        count("io.stuff_chunks_slow", int(chunks[1]))
+    return transfer.read_segments(stream[None], [count])[0]
 
 
 def finish_restart_scan(words: torch.Tensor, bits: torch.Tensor,
@@ -364,16 +305,7 @@ def finish_restart_scan(words: torch.Tensor, bits: torch.Tensor,
         overflowed, total_bits = head.tolist()
     if overflowed:
         return None
-    nwords = (total_bits + 31) // 32
-    with span("io.readback"):
-        host = torch.cat([stream[:nwords], seg_tot]).cpu().numpy()
-    chunks = np.zeros(2, np.int64)
-    with span("io.stuff"):
-        scan = entropy_host.scan_from_words(
-            host[:nwords].view(np.uint32), host[nwords:].astype(np.int64) // 8,
-            counts=chunks)
-        _count_chunks(chunks)
-    return scan
+    return transfer.read_restart_scan(stream, seg_tot, total_bits)
 
 
 _CAP_HISTORY_MAX = 4096

@@ -7,7 +7,8 @@ own functions in the order the entry point runs them, so that a profile
 measures the path itself and not a copy of it:
 
   gray (pipeline.encode_grayscale)
-    pad+h2d+K1        pipeline._levels: host edge pad, H2D copy, K1
+    pad+h2d+K1        pipeline._levels: io.transfer.stage (edge pad,
+                      H2D copy), K1
     dc diff           entropy.device.dc_differences
     K4 pack           entropy.pack.encode_blocks
     K8+K9 concat      pipeline.scan_stream: K8 + K9, or K8 + K10 past
@@ -24,7 +25,7 @@ measures the path itself and not a copy of it:
     and the last three rows as for gray.
 
 On the card the device rows are CUDA events. The first row starts on an
-idle card, so it holds the host's edge pad and the pageable copy as well
+idle card, so it holds the host's edge pad and the copy up as well
 as K1 (or K2 + K3). The later device rows are queued behind a
 `torch.cuda._sleep` spin, so each reads the device's time and not the
 host's launch latency (tens of microseconds a wrapper call). The host

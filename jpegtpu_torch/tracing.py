@@ -38,7 +38,7 @@ same whichever entry runs it:
 
 Counters: `batch.groups` (groups that run the group ladder),
 `orch.rungs` (rungs those ladders ran), `io.chunks` and `io.chunk_waits`
-(the batch's staging ring), `io.stuff_chunks` and `io.stuff_chunks_slow`
+(io.transfer's staging ring), `io.stuff_chunks` and `io.stuff_chunks_slow`
 (8-byte chunks the native stuffer tested in io.stuff, and those that held
 a 0xFF and went a byte at a time) and `io.on_card_images` (images staged
 by io.on_card).

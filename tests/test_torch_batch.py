@@ -16,7 +16,9 @@ from jpegtpu.entropy import host as jhost
 from jpegtpu.io import jfif as jjfif
 
 import jpegtpu_torch
-from jpegtpu_torch import EncodeConfig, batch, tracing
+from jpegtpu_torch import EncodeConfig, batch, color_pipeline, tracing
+from jpegtpu_torch.io import transfer
+from jpegtpu_torch.parallel import sharding
 
 from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
 
@@ -229,12 +231,11 @@ def test_a_batch_stages_through_the_ring_in_chunks(monkeypatch, color):
         single = jpegtpu_torch.encode_grayscale
     images = [_photo(*s[:2], 90 + i, rgb=len(s) == 3)
               for i, s in enumerate(shapes)]
-    monkeypatch.setattr(batch, "_CHUNK_BYTES", chunk)
-    monkeypatch.setattr(batch, "_rings", {})
+    monkeypatch.setattr(transfer, "_CHUNK_BYTES", chunk)
+    monkeypatch.setattr(transfer, "_rings", {})
     with tracing.recording():
         got = encode(images, cfg, **CPU)
-    ring = batch._rings[False]
-    ring.copiers.shutdown()
+    ring = transfer._rings[False]
     # five small images two a chunk, then one a chunk for each larger
     # one (color: two of 48 x 64 x 3; gray: one RGB 24 x 32 x 3 and two
     # 40 x 64)
@@ -243,6 +244,40 @@ def test_a_batch_stages_through_the_ring_in_chunks(monkeypatch, color):
         48 * 64 * 3 if color else 40 * 64)
     for image, data in zip(images, got):
         assert data == single(image, cfg, **CPU)
+    ring.copiers.shutdown()
+
+
+_GRAY, _COLOR = EncodeConfig(), EncodeConfig(subsampling="420")
+_MESH = dict(mesh=["cpu"] * 2)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda ims: [jpegtpu_torch.encode_grayscale(im, _GRAY, **CPU)
+                 for im in ims],
+    lambda ims: [jpegtpu_torch.encode_color(im, _COLOR, **CPU) for im in ims],
+    lambda ims: batch.encode_grayscale_batch(ims, _GRAY, **CPU),
+    lambda ims: batch.encode_color_batch(ims, _COLOR, **CPU),
+    lambda ims: jpegtpu_torch.encode_stream_list(ims, _GRAY, **CPU),
+    lambda ims: jpegtpu_torch.encode_stream_list(ims, _COLOR, color=True,
+                                                 **CPU),
+    lambda ims: [sharding.encode_grayscale_sharded(im, _GRAY, **_MESH)
+                 for im in ims],
+    lambda ims: [color_pipeline.encode_color_sharded(im, _COLOR, **_MESH)
+                 for im in ims],
+], ids=["single_gray", "single_420", "batch_gray", "batch_420",
+        "stream_gray", "stream_420", "sharded_gray", "sharded_420"])
+def test_every_entry_crosses_the_bus_through_the_ring(entry):
+    """Each entry stages its images through the ring (io.chunks, io.stack,
+    io.pad, io.upload) and reads its scans back through one host finish
+    (io.readback, io.stuff). The bytes are held by the other tests."""
+    images = [_photo(61, 93, 95, rgb=True), _photo(61, 93, 96)]
+    with tracing.recording():
+        files = entry(images)
+    t = tracing.totals()
+    assert len(files) == 2 and all(f[:2] == b"\xff\xd8" for f in files)
+    assert t["counts"]["io.chunks"] >= 1
+    assert {"io.stack", "io.pad", "io.upload", "io.readback",
+            "io.stuff"} <= set(t["spans"])
 
 
 def test_input_order_empty_batch_and_refusals():

@@ -21,6 +21,7 @@ import jpegtpu_torch
 from jpegtpu_torch import EncodeConfig, batch, pipeline
 from jpegtpu_torch.entropy import concat, device, pack
 from jpegtpu_torch.entropy.device import MAX_WORDS_PER_BLOCK
+from jpegtpu_torch.io import transfer
 
 from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
 
@@ -197,6 +198,6 @@ def test_stuff_device_is_read_back_stuffed(monkeypatch):
     img = np.random.default_rng(7).integers(0, 256, (32, 32), np.uint8)
     cfg = EncodeConfig(quality=100)
     want = jpegtpu_torch.encode_grayscale(img, cfg, **CPU)
-    monkeypatch.setattr(pipeline, "segments_from_streams", None)
+    monkeypatch.setattr(transfer, "read_segments", None)
     assert jpegtpu_torch.encode_grayscale(
         img, dataclasses.replace(cfg, stuff="device"), **CPU) == want

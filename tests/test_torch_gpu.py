@@ -11,12 +11,13 @@ import pytest
 import torch
 
 import jpegtpu_torch
-from jpegtpu_torch import batch, pipeline, tables, tracing
+from jpegtpu_torch import pipeline, tables, tracing
 from jpegtpu_torch import _build
 from jpegtpu_torch.entropy import concat, device, merge, pack, stitch
 from jpegtpu_torch.entropy import treepack
 from jpegtpu_torch.entropy.device import (dc_differences, symbol_histograms,
                                           y_dc_differences)
+from jpegtpu_torch.io import transfer
 from jpegtpu_torch.ops import stage, transform
 
 from kernel_edge_cases import (K10_CASES, K7_CAPS, K8_CASES, K9_CASES,
@@ -451,12 +452,12 @@ def test_batch_stages_through_a_pinned_ring(cuda, monkeypatch):
               (200, 330, 3)]
     images = [rng.integers(0, 256, s, np.uint8) for s in shapes]
     cfg = jpegtpu_torch.EncodeConfig(dct_dtype="int32", subsampling="420")
-    monkeypatch.setattr(batch, "_CHUNK_BYTES", 2 * 64 * 96 * 3)
-    monkeypatch.setattr(batch, "_rings", {})
+    monkeypatch.setattr(transfer, "_CHUNK_BYTES", 2 * 64 * 96 * 3)
+    monkeypatch.setattr(transfer, "_rings", {})
     with tracing.recording():
         got = jpegtpu_torch.encode_color_batch(images, cfg)
     assert tracing.totals()["counts"]["io.chunks"] == 3 + 1
-    ring = batch._rings[True]
+    ring = transfer._rings[True]
     assert all(b.is_pinned() for b in ring.buffers)
     pinned = [b.data_ptr() for b in ring.buffers]
     assert jpegtpu_torch.encode_color_batch(images, cfg) == got
@@ -468,18 +469,30 @@ def test_batch_stages_through_a_pinned_ring(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("color", [True, False], ids=["420", "gray"])
-def test_stream_matches_cpu_in_int32_mode(cuda, color):
-    """encode_stream's edge pad into pinned slots over its copying threads
-    (a 2-D image, sizes that are not whole blocks or MCUs, one of more
-    than a band of rows) gives the CPU path's bytes."""
+def test_stream_matches_cpu_in_int32_mode(cuda, color, monkeypatch):
+    """encode_stream's edge pad into the ring's pinned buffers over its
+    copying threads (a 2-D image, sizes that are not whole blocks or
+    MCUs, one of more than a band of rows) gives the CPU path's bytes:
+    one chunk an image, both buffers pinned, and a second stream pins no
+    new one."""
     rng = np.random.default_rng(10)
     images = [rng.integers(0, 256, s, np.uint8) for s in [
         (61, 93, 3), (61, 93), (300, 130, 3), (16, 1030), (64, 64, 3)]]
     cfg = jpegtpu_torch.EncodeConfig(
         dct_dtype="int32", subsampling="420" if color else "gray")
-    assert jpegtpu_torch.encode_stream_list(images, cfg, color=color) == \
-        jpegtpu_torch.encode_stream_list(images, cfg, color=color,
-                                         device="cpu")
+    monkeypatch.setattr(transfer, "_rings", {})
+    with tracing.recording():
+        got = jpegtpu_torch.encode_stream_list(images, cfg, color=color)
+    assert tracing.totals()["counts"]["io.chunks"] == len(images)
+    ring = transfer._rings[True]
+    assert all(b.is_pinned() for b in ring.buffers)
+    pinned = [b.data_ptr() for b in ring.buffers]
+    assert jpegtpu_torch.encode_stream_list(images, cfg, color=color,
+                                            depth=3) == got
+    assert [b.data_ptr() for b in ring.buffers] == pinned
+    ring.copiers.shutdown()
+    assert got == jpegtpu_torch.encode_stream_list(images, cfg, color=color,
+                                                   device="cpu")
 
 
 @pytest.mark.parametrize("cap,nbw,tiles", [
@@ -895,7 +908,7 @@ def test_card_tensor_batches_equal_numpy_batches(cuda, kw):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        stack = batch._stage(images[:2], (64, 96, *shapes[0][2:]), cuda)
+        stack = transfer.stage(images[:2], (64, 96, *shapes[0][2:]), cuda)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(stack, stage.stage_images_plain(

@@ -12,12 +12,14 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 from benchmark import content, manifest
 from benchmark.reference import encoder
 import jpegtpu_torch
-from jpegtpu_torch import native, pipeline, tracing
+from jpegtpu_torch import native, tracing
 from jpegtpu_torch.entropy import host
+from jpegtpu_torch.io import transfer
 
 from torch_jax_memory import release_jax_memory  # noqa: F401 (autouse)
 
@@ -167,8 +169,8 @@ def test_a_tally_must_be_two_int64():
 
 
 def test_the_host_finish_counts_chunks(monkeypatch):
-    """segments_from_streams books the stuffer's tally while tracing
-    records, and its numpy twin (no g++) gives the same bytes."""
+    """read_segments books the stuffer's tally while tracing records,
+    and its numpy twin (no g++) gives the same bytes."""
     rng = np.random.default_rng(7)
     raws = [rng.integers(0, 256, n, dtype=np.uint8) for n in (0, 13, 64, 301)]
     raws[3][::9] = 0xFF
@@ -178,14 +180,15 @@ def test_the_host_finish_counts_chunks(monkeypatch):
         words = _words(raw)
         row[:words.size] = words
     totals = [8 * r.size for r in raws]
+    streams = torch.from_numpy(streams.view(np.int32))
     with tracing.recording():
-        got = pipeline.segments_from_streams(streams, totals)
+        got = transfer.read_segments(streams, totals)
     assert got == [host.stuff_bytes(r) for r in raws]
     want = np.sum([_chunks(r) for r in raws], axis=0).tolist()
     counts = tracing.totals()["counts"]
     assert [counts["io.stuff_chunks"], counts["io.stuff_chunks_slow"]] == want
     monkeypatch.setattr(native, "available", lambda: False)
-    assert pipeline.segments_from_streams(streams, totals) == got
+    assert transfer.read_segments(streams, totals) == got
 
 
 def test_the_restart_finish_counts_chunks():

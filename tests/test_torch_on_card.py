@@ -175,7 +175,7 @@ def test_the_numpy_route_is_unchanged_and_a_cpu_tensor_goes_to_it():
     assert "io.on_card" not in t["spans"] and {"io.stack", "io.pad",
                                                "io.upload"} <= set(t["spans"])
     tensor = torch.from_numpy(images[0])
-    source = jpegtpu_torch.pipeline.source_image
+    source = jpegtpu_torch.io.transfer.source_image
     assert isinstance(source(tensor, torch.device("cuda", 0)), np.ndarray)
     assert source(tensor, torch.device("cpu")) is tensor
     assert source(images[0], torch.device("cpu")) is images[0]

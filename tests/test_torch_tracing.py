@@ -251,15 +251,16 @@ def test_the_single_and_serving_entries_record_their_spans():
     with tracing.recording():
         jpegtpu_torch.encode_color(images[0], COLOR, **CPU)
     assert set(tracing.totals()["spans"]) == {
-        "entry.single", "io.pad", "io.upload", "orch.tables", "orch.front",
-        "orch.entropy", "orch.wait", "io.readback", "io.stuff", "io.jfif"}
+        "entry.single", "io.pad", "io.stack", "io.upload", "orch.tables",
+        "orch.front", "orch.entropy", "orch.wait", "io.readback", "io.stuff",
+        "io.jfif"}
     with tracing.recording():
         jpegtpu_torch.encode_stream_list(images, COLOR, color=True, **CPU)
     t = tracing.totals()
     assert set(t["spans"]) == {
-        "serve.submit", "serve.finish", "io.pad", "orch.tables",
-        "orch.front", "orch.entropy", "orch.wait", "io.readback", "io.stuff",
-        "io.jfif"}
+        "serve.submit", "serve.finish", "io.pad", "io.stack", "io.upload",
+        "orch.tables", "orch.front", "orch.entropy", "orch.wait",
+        "io.readback", "io.stuff", "io.jfif"}
     assert t["spans"]["serve.submit"]["calls"] == 2
 
 
